@@ -1,0 +1,248 @@
+"""Fused conv kernels of the serving forward (counterpart of
+``medseg/kernels/conv_of.py``).
+
+Four wrappers, each beside its plain PyTorch version in this module:
+
+- ``conv3x3x3_of`` (K1): 3x3x3 same-pad conv, optional input prologue
+  ``leaky(a*x + b)`` (the previous instance norm + activation), optional 1x1x1
+  residual tap on the same transformed input; returns per-(b, c_out) sum and
+  sum of squares of the fp32 results beside each output (two-phase instance
+  norm: ``norm_affine_from_stats`` turns them into the next prologue);
+- ``conv3x3x3_of_cat2`` (K5): the same over the channel concat ``[xa ; xb]``
+  of two streams, with the residual tap, no concat in memory;
+- ``conv3x3x3_of_combine`` (K2): the same over
+  ``[up ; leaky(ay*y + by + ax*x + bx)]`` built from three streams;
+- ``outhead_of`` (K3): ``leaky(az*z + bz + ar*res + br)`` -> 1x1x1 head + bias,
+  times a per-voxel blend weight.
+
+Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
+weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its CUDA kernel (``csrc/``) or raises. Each wrapper's ``launches``
+counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from medseg_torch.kernels import _build
+from medseg_torch.models.blocks import NORM_EPS, leaky_relu
+
+_MODES = {"plain": 0, "affine_leaky": 1, "cat2": 2, "combine": 3}
+KERNEL_C_OUT = (16, 32)  # output widths the conv kernel is instantiated for
+OUTHEAD_MAX_C = 64  # MAXC of csrc/outhead_of.cu
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _bc(t: torch.Tensor) -> torch.Tensor:
+    """(B, C) per-channel values -> (B, C, 1, 1, 1)."""
+    return t[:, :, None, None, None]
+
+
+def norm_affine_from_stats(s, ss, scale, bias, n_valid: int, eps: float = NORM_EPS):
+    """(B, C) sums and sums of squares -> per-(b, c) affine ``(a, b)`` with
+    ``a*x + b == instance_norm(x)``; var = ss/n - mean^2 clamped at 0."""
+    mean = s / n_valid
+    var = ss / n_valid - mean * mean
+    a = scale.float()[None, :] * torch.rsqrt(var.clamp_min(0.0) + eps)
+    return a, bias.float()[None, :] - mean * a
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (fp32 math on operands rounded to the compute dtype)
+# ---------------------------------------------------------------------------
+
+def _conv_stats_plain(xt: torch.Tensor, weight: torch.Tensor, wres: torch.Tensor | None):
+    """Transformed fp32 input -> (out, s, ss[, res, rs, rss]) in weight.dtype."""
+    xt = xt.to(weight.dtype).float()  # operands as the kernel stages them
+    out = F.conv3d(xt, weight.float(), padding=1)
+    outs = [out.to(weight.dtype), out.sum((2, 3, 4)), out.square().sum((2, 3, 4))]
+    if wres is not None:
+        res = F.conv3d(xt, wres.float())
+        outs += [res.to(weight.dtype), res.sum((2, 3, 4)), res.square().sum((2, 3, 4))]
+    return tuple(outs)
+
+
+def conv3x3x3_of_plain(x, weight, a=None, b=None, wres=None):
+    xt = x.float()
+    if a is not None:
+        xt = leaky_relu(xt * _bc(a) + _bc(b))
+    return _conv_stats_plain(xt, weight, wres)
+
+
+def conv3x3x3_of_cat2_plain(xa, xb, weight, wres):
+    return _conv_stats_plain(torch.cat([xa.float(), xb.float()], dim=1), weight, wres)
+
+
+def conv3x3x3_of_combine_plain(up, y, x1, ay, by, ax, bx, weight, wres):
+    comb = leaky_relu(y.float() * _bc(ay) + _bc(by) + x1.float() * _bc(ax) + _bc(bx))
+    return _conv_stats_plain(torch.cat([up.float(), comb], dim=1), weight, wres)
+
+
+def outhead_of_plain(z, res, az, bz, ar, br, kout, bias, scale=None):
+    comb = leaky_relu(z.float() * _bc(az) + _bc(bz) + res.float() * _bc(ar) + _bc(br))
+    comb = comb.to(kout.dtype).float()
+    logits = torch.einsum("kc,bcdhw->bkdhw", kout.float(), comb)
+    logits = logits + bias.float()[None, :, None, None, None]
+    if scale is not None:
+        logits = logits * scale
+    return logits.to(kout.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _device_of(x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}; CPU tensors take the plain version")
+    return x.device
+
+
+def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0):
+    """Checks shapes, allocates outputs and launches the conv kernel."""
+    x0 = streams[0]
+    dev = _device_of(x0)
+    dt = weight.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
+    c_out, c = weight.shape[:2]
+    if c_out not in KERNEL_C_OUT:
+        raise ValueError(f"C_out={c_out}: the conv kernel is built for C_out in {KERNEL_C_OUT}")
+    bsz, _, d, h, w = x0.shape
+    vol = (d, h, w)
+    c_half = c // 2 if mode in ("cat2", "combine") else 0
+    _check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
+    if wres is not None:
+        _check(wres, "wres", (c_out, c, 1, 1, 1), dt, dev)
+    widths = {
+        "plain": [c], "affine_leaky": [c], "cat2": [c_half, c_half],
+        "combine": [c_half, c_half, x_channels],
+    }[mode]
+    if mode == "combine" and x_channels not in (1, c_half):
+        raise ValueError(f"combine: x has {x_channels} channels, expected 1 or {c_half}")
+    for i, (t, width) in enumerate(zip(streams, widths)):
+        _check(t, f"input stream {i}", (bsz, width, *vol), dt, dev)
+    aff = [None] * 4
+    aff_width = c if mode == "affine_leaky" else c_half
+    for i, t in enumerate(affines):
+        _check(t, f"affine {i}", (bsz, aff_width), torch.float32, dev)
+        aff[i] = t
+    out = torch.empty((bsz, c_out, *vol), dtype=dt, device=dev)
+    s = torch.zeros((bsz, c_out), dtype=torch.float32, device=dev)
+    ss = torch.zeros_like(s)
+    res = rs = rss = None
+    if wres is not None:
+        res = torch.empty_like(out)
+        rs = torch.zeros_like(s)
+        rss = torch.zeros_like(s)
+    xs = list(streams) + [None] * (3 - len(streams))
+    err = _build.lib().medseg_conv3x3x3(
+        dev.index,
+        int(dt == torch.bfloat16), _MODES[mode], int(wres is not None), c_out,
+        *map(_ptr, xs), *map(_ptr, aff), _ptr(weight), _ptr(wres),
+        _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs), _ptr(rss),
+        bsz, c, c_half, x_channels, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, f"conv3x3x3 kernel ({mode})")
+    if wres is None:
+        return out, s, ss
+    return out, s, ss, res, rs, rss
+
+
+def conv3x3x3_of(x, weight, a=None, b=None, wres=None):
+    """K1. x (B, C, D, H, W) in the compute dtype; weight (CO, C, 3, 3, 3);
+    ``a``, ``b`` (B, C) fp32 select the ``leaky(a*x + b)`` prologue; wres
+    (CO, C, 1, 1, 1) adds the residual tap. Returns ``(out, s, ss)`` or
+    ``(out, s, ss, res, rs, rss)``; ``s``/``ss`` are (B, CO) fp32."""
+    if x.device.type == "cpu":
+        return conv3x3x3_of_plain(x, weight, a, b, wres)
+    mode = "plain" if a is None else "affine_leaky"
+    outs = _launch_conv(mode, (x,), weight, wres, () if a is None else (a, b))
+    conv3x3x3_of.launches += 1
+    return outs
+
+
+def conv3x3x3_of_cat2(xa, xb, weight, wres):
+    """K5. Conv + residual tap + stats over ``[xa ; xb]`` (each (B, C/2, D, H,
+    W)); returns ``(out, s, ss, res, rs, rss)``."""
+    if xa.device.type == "cpu":
+        return conv3x3x3_of_cat2_plain(xa, xb, weight, wres)
+    outs = _launch_conv("cat2", (xa, xb), weight, wres, ())
+    conv3x3x3_of_cat2.launches += 1
+    return outs
+
+
+def conv3x3x3_of_combine(up, y, x1, ay, by, ax, bx, weight, wres):
+    """K2. Conv + residual tap + stats over ``[up ; leaky(ay*y + by + ax*x1 +
+    bx)]``: up, y (B, C/2, D, H, W); x1 (B, 1 or C/2, D, H, W), a 1-channel
+    x broadcast over the C/2 channels; affines (B, C/2) fp32. Returns
+    ``(out, s, ss, res, rs, rss)``."""
+    if up.device.type == "cpu":
+        return conv3x3x3_of_combine_plain(up, y, x1, ay, by, ax, bx, weight, wres)
+    outs = _launch_conv(
+        "combine", (up, y, x1), weight, wres, (ay, by, ax, bx), x_channels=x1.shape[1]
+    )
+    conv3x3x3_of_combine.launches += 1
+    return outs
+
+
+def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
+    """K3. z, res (B, C, D, H, W); affines (B, C) fp32; kout (K_pad, C) in the
+    compute dtype; bias (K_pad,) fp32; scale (B, 1, D, H, W) fp32 or None.
+    Returns (B, K_pad, D, H, W) logits in the compute dtype (fp32 sums)."""
+    if z.device.type == "cpu":
+        return outhead_of_plain(z, res, az, bz, ar, br, kout, bias, scale)
+    dev = _device_of(z)
+    dt = kout.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
+    bsz, c, d, h, w = z.shape
+    if c > OUTHEAD_MAX_C:
+        raise ValueError(f"out head: C={c} above the kernel's {OUTHEAD_MAX_C} register slots")
+    k = kout.shape[0]
+    _check(z, "z", (bsz, c, d, h, w), dt, dev)
+    _check(res, "res", (bsz, c, d, h, w), dt, dev)
+    for name, t in (("az", az), ("bz", bz), ("ar", ar), ("br", br)):
+        _check(t, name, (bsz, c), torch.float32, dev)
+    _check(kout, "kout", (k, c), dt, dev)
+    _check(bias, "bias", (k,), torch.float32, dev)
+    if scale is not None:
+        _check(scale, "scale", (bsz, 1, d, h, w), torch.float32, dev)
+    out = torch.empty((bsz, k, d, h, w), dtype=dt, device=dev)
+    err = _build.lib().medseg_outhead(
+        dev.index, int(dt == torch.bfloat16), int(scale is not None),
+        _ptr(z), _ptr(res), _ptr(az), _ptr(bz), _ptr(ar), _ptr(br), _ptr(kout), _ptr(bias),
+        _ptr(scale), _ptr(out), bsz, c, k, d * h * w,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "outhead kernel")
+    outhead_of.launches += 1
+    return out
+
+
+KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,198 @@
+"""Fused UNETR serving forward (counterpart of ``medseg/kernels/unetr_of.py``,
+``fast_apply_v3`` in its non-z-row form: no parity planes, no z-packing, no
+W-fold).
+
+Functionally ``UNETR.forward(x, return_encoder_features=False)``, with the
+48^3 decoder and the two full-resolution stages run as a chain of
+``conv_of`` kernels and two-phase instance norm:
+
+    ViT + enc2-4 + dec5-4 (plain torch: SDPA, cuDNN)
+    dec3:  transpose conv -> K5 cat2 [up ; enc2] (+conv3 tap) -> K1 (affine)
+    enc1:  K1 conv1 (C_in=1: conv3 folds into an affine of x; C_in>1: conv3
+           from conv1's residual tap) -> K1 conv2 (affine prologue)
+    dec2:  transpose conv -> K2 combine [up ; enc1] (+conv3 tap) -> K1 conv2
+    out:   K3 combine + 1x1 head + bias [* blend weight]
+
+Each kernel's epilogue sums its output per (b, channel); ``_affine`` turns
+the sums into the next norm's affine, applied in the next kernel's
+prologue. Conv biases cancel under instance norm and are never read. The
+chain's weights are cast to the compute dtype once per model
+(``fused_weights``) and passed to every forward.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from medseg_torch.kernels.conv_of import (
+    _bc,
+    conv3x3x3_of,
+    conv3x3x3_of_cat2,
+    conv3x3x3_of_combine,
+    norm_affine_from_stats,
+    outhead_of,
+)
+from medseg_torch.models.blocks import leaky_relu
+from medseg_torch.models.unetr import UNETR
+
+
+def _chain_correct(model: UNETR, x_shape) -> bool:
+    """Whether the fused chain computes the right answer: it expresses
+    residual blocks whose conv3 exists. With C_in == feature_size encoder1
+    has no conv3 (its residual is x verbatim), and ``res_block=False`` has
+    no residual at all — those route to the plain forward."""
+    return model.res_block and x_shape[1] != model.feature_size
+
+
+def class_pad(n_classes: int) -> int:
+    """Out-head rows: classes padded to a multiple of 8 (at least 8)."""
+    return max(8, -(-n_classes // 8) * 8)
+
+
+def _affine(s, ss, norm, n_valid: int):
+    return norm_affine_from_stats(s, ss, norm.weight, norm.bias, n_valid)
+
+
+@torch.no_grad()
+def fused_weights(model: UNETR) -> dict[str, torch.Tensor]:
+    """The chain's weights in the compute dtype ``model.dtype``, on the
+    model's device: every conv and transpose-conv parameter of encoder1,
+    decoder3 and decoder2 under its ``state_dict`` name, plus the out head
+    as ``out.weight`` (K_pad, FS) and ``out.bias`` (K_pad,) fp32, its pad
+    rows zero. Stale once the model's parameters change or move."""
+    dtype = model.dtype or torch.float32
+    w = {
+        name: p.to(dtype).contiguous()
+        for name, p in model.named_parameters()
+        if name.startswith(("encoder1.", "decoder3.", "decoder2.")) and ".norm" not in name
+    }
+    head = model.out.conv.conv
+    n_pad = class_pad(model.out_channels) - model.out_channels
+    w["out.weight"] = F.pad(head.weight.reshape(model.out_channels, -1), (0, 0, 0, n_pad)).to(dtype)
+    w["out.bias"] = F.pad(head.bias.float(), (0, n_pad))
+    return w
+
+
+def _lowres_stages(model: UNETR, x: torch.Tensor):
+    """ViT + the <= 24^3 stages (``_xla_stages`` on the JAX side): returns
+    (enc2, dec2)."""
+    q = model.num_layers // 4
+    tokens, hidden = model.vit(x)
+    enc2 = model.encoder2(model.proj_feat(hidden[q]))
+    enc3 = model.encoder3(model.proj_feat(hidden[2 * q]))
+    enc4 = model.encoder4(model.proj_feat(hidden[3 * q]))
+    dec3 = model.decoder5(model.proj_feat(tokens), enc4)
+    dec2 = model.decoder4(dec3, enc3)
+    return enc2, dec2
+
+
+def _upsample(w, name: str, x: torch.Tensor) -> torch.Tensor:
+    weight = w[f"{name}.transp_conv.conv.weight"]
+    up = F.conv_transpose3d(
+        x.to(weight.dtype), weight, w[f"{name}.transp_conv.conv.bias"], stride=2
+    )
+    return up.contiguous()  # cuDNN may return another memory format
+
+
+def up_block_of(model: UNETR, name: str, x: torch.Tensor, skip: torch.Tensor, w) -> torch.Tensor:
+    """``UnetrUpBlock`` ``name`` through the kernels: transpose conv, K5 over
+    ``[up ; skip]`` with the conv3 tap, K1 with the norm1 prologue, then the
+    final combine ``leaky(norm2(z2) + norm3(res))``. ``w``: ``fused_weights``."""
+    up = _upsample(w, name, x)
+    blk = getattr(model, name).conv_block
+
+    def cw(conv):
+        return w[f"{name}.conv_block.{conv}.conv.weight"]
+
+    n_valid = up.shape[2] * up.shape[3] * up.shape[4]
+    z1, s1, ss1, res, rs, rss = conv3x3x3_of_cat2(
+        up, skip.to(up.dtype).contiguous(), cw("conv1"), cw("conv3")
+    )
+    a1, b1 = _affine(s1, ss1, blk.norm1, n_valid)
+    z2, s2, ss2 = conv3x3x3_of(z1, cw("conv2"), a1, b1)
+    a2, b2 = _affine(s2, ss2, blk.norm2, n_valid)
+    a3, b3 = _affine(rs, rss, blk.norm3, n_valid)
+    out = leaky_relu(_bc(a2) * z2.float() + _bc(b2) + _bc(a3) * res.float() + _bc(b3))
+    return out.to(up.dtype)
+
+
+@torch.no_grad()
+def fast_apply_v3(
+    model: UNETR,
+    x: torch.Tensor,
+    weights: dict[str, torch.Tensor],
+    *,
+    out_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused serving forward.
+
+    Args:
+      x: (B, C_in, D, H, W) window batch, D/H/W = ``model.img_size``.
+      weights: ``fused_weights(model)``.
+      out_scale: (B, 1, D, H, W) fp32 per-voxel blend weight multiplied into
+        the logits in the out-head epilogue (pre-weighted serving logits).
+
+    Returns:
+      (B, K_pad, D, H, W) logits in the compute dtype ``model.dtype`` (fp32
+      when None; the low-resolution stages run under autocast to it), K_pad
+      = ``class_pad(out_channels)``; pad classes carry bias (times the
+      weight) and are cropped by the caller.
+    """
+    n_classes = model.out_channels
+    k_pad = class_pad(n_classes)
+    dtype = model.dtype or torch.float32
+    if not _chain_correct(model, x.shape):
+        out = model(x, return_encoder_features=False)
+        if out_scale is not None:
+            out = out * out_scale
+        return F.pad(out, (0, 0, 0, 0, 0, 0, 0, k_pad - n_classes)).to(dtype)
+
+    fs = model.feature_size
+    b, c_in, d, h, w = x.shape
+    n_valid = d * h * w
+
+    def cw(conv):
+        return weights[f"{conv}.conv.weight"]
+
+    with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
+        enc2, dec2 = _lowres_stages(model, x)
+    dec1 = up_block_of(model, "decoder3", dec2, enc2, weights)
+
+    # ---- full-resolution chain ----
+    e1 = model.encoder1.layer
+    xd = x.to(dtype).contiguous()
+    if c_in == 1:
+        y1, s1, ss1 = conv3x3x3_of(xd, cw("encoder1.layer.conv1"))
+        # 1x1 conv3 on the 1-channel input == per-channel scale of x; its
+        # norm3 stats derive from x's own moments (no residual tensor)
+        k3 = e1.conv3.conv.weight.float().reshape(fs)
+        xf = x.float()
+        sx = xf.sum((1, 2, 3, 4))
+        ssx = xf.square().sum((1, 2, 3, 4))
+        a3, b3 = _affine(sx[:, None] * k3[None], ssx[:, None] * k3.square()[None], e1.norm3, n_valid)
+        ax, bx = a3 * k3[None], b3  # the 1x1 weights folded into the affine
+        x_stream = xd
+    else:
+        # the conv3 residual is a real C_in -> FS matmul: emitted by conv1's
+        # residual tap, with its norm3 stats from the same epilogue
+        y1, s1, ss1, x_stream, rs3, rss3 = conv3x3x3_of(
+            xd, cw("encoder1.layer.conv1"), wres=cw("encoder1.layer.conv3")
+        )
+        ax, bx = _affine(rs3, rss3, e1.norm3, n_valid)
+    a1, b1 = _affine(s1, ss1, e1.norm1, n_valid)
+    y2, s2, ss2 = conv3x3x3_of(y1, cw("encoder1.layer.conv2"), a1, b1)
+    a2, b2 = _affine(s2, ss2, e1.norm2, n_valid)
+
+    up = _upsample(weights, "decoder2", dec1)
+    d2 = model.decoder2.conv_block
+    z1, zs1, zss1, res, rs, rss = conv3x3x3_of_combine(
+        up, y2, x_stream, a2, b2, ax, bx, cw("decoder2.conv_block.conv1"),
+        cw("decoder2.conv_block.conv3"),
+    )
+    za1, zb1 = _affine(zs1, zss1, d2.norm1, n_valid)
+    z2, zs2, zss2 = conv3x3x3_of(z1, cw("decoder2.conv_block.conv2"), za1, zb1)
+    za2, zb2 = _affine(zs2, zss2, d2.norm2, n_valid)
+    za3, zb3 = _affine(rs, rss, d2.norm3, n_valid)
+    head, bias = weights["out.weight"], weights["out.bias"]
+    return outhead_of(z2, res, za2, zb2, za3, zb3, head, bias, out_scale)

@@ -1,0 +1,160 @@
+"""UNETR convolutional building blocks, NCDHW ``nn.Module``s.
+
+Counterpart of ``medseg/models/blocks.py``, with the same behaviour
+contracts (MONAI 0.6.0 ``UnetResBlock``, ``UnetBasicBlock``,
+``UnetrBasicBlock``, ``UnetrPrUpBlock``, ``UnetrUpBlock``, ``UnetOutBlock``).
+Submodule names follow MONAI's, so ``state_dict`` keys are those of the
+reference checkpoints (``encoder1.layer.conv1.conv.weight``, ...) that
+``medseg.engine.checkpoint.convert_torch_state_dict`` parses. Every conv has
+a bias, as the flax blocks do, so the parameter sets are identical.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LEAKY_SLOPE = 0.01  # MONAI dynunet act: leakyrelu(negative_slope=0.01)
+NORM_EPS = 1e-5  # torch InstanceNorm3d default eps
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+class InstanceNorm(nn.Module):
+    """Affine instance norm over the spatial dims, per sample and channel,
+    statistics in fp32 whatever the input dtype (flax ``InstanceNorm``)."""
+
+    def __init__(self, channels: int, eps: float = NORM_EPS) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = tuple(range(2, x.ndim))
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = (xf - mean).square().mean(dim=dims, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = y * self.weight.float().view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+
+class Conv3d(nn.Module):
+    """Stride-1 3D conv with torch 'same' padding for odd kernels; the conv
+    sits in a ``conv`` child as in MONAI's ``Convolution``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3) -> None:
+        super().__init__()
+        self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, padding=(kernel_size - 1) // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class ConvTranspose3d(nn.Module):
+    """ConvTranspose(k=2, s=2) used for all UNETR upsampling (doubles D/H/W)."""
+
+    def __init__(self, in_ch: int, out_ch: int) -> None:
+        super().__init__()
+        self.conv = nn.ConvTranspose3d(in_ch, out_ch, 2, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class UnetResBlock(nn.Module):
+    """Residual conv block: (conv-norm-lrelu, conv-norm) + residual, projected
+    by a 1x1x1 conv + norm when the channel count changes. Kernel 3, stride
+    1: the only form UNETR uses."""
+
+    def __init__(self, in_ch: int, out_ch: int) -> None:
+        super().__init__()
+        self.conv1 = Conv3d(in_ch, out_ch)
+        self.conv2 = Conv3d(out_ch, out_ch)
+        self.norm1 = InstanceNorm(out_ch)
+        self.norm2 = InstanceNorm(out_ch)
+        self.downsample = in_ch != out_ch
+        if self.downsample:
+            self.conv3 = Conv3d(in_ch, out_ch, 1)
+            self.norm3 = InstanceNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = leaky_relu(self.norm1(self.conv1(x)))
+        y = self.norm2(self.conv2(y))
+        r = self.norm3(self.conv3(x)) if self.downsample else x
+        return leaky_relu(y + r)
+
+
+class UnetBasicBlock(nn.Module):
+    """Non-residual variant: (conv-norm-lrelu) x2 (res_block=False path)."""
+
+    def __init__(self, in_ch: int, out_ch: int) -> None:
+        super().__init__()
+        self.conv1 = Conv3d(in_ch, out_ch)
+        self.conv2 = Conv3d(out_ch, out_ch)
+        self.norm1 = InstanceNorm(out_ch)
+        self.norm2 = InstanceNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = leaky_relu(self.norm1(self.conv1(x)))
+        return leaky_relu(self.norm2(self.conv2(y)))
+
+
+def _conv_block(in_ch: int, out_ch: int, res_block: bool) -> nn.Module:
+    return (UnetResBlock if res_block else UnetBasicBlock)(in_ch, out_ch)
+
+
+class UnetrBasicBlock(nn.Module):
+    """Reference encoder1."""
+
+    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True) -> None:
+        super().__init__()
+        self.layer = _conv_block(in_ch, out_ch, res_block)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class UnetrPrUpBlock(nn.Module):
+    """Progressive upsampler from the token grid: ``num_layer + 1``
+    ConvTranspose(k=2, s=2) stages, the reference's ``conv_block=False`` form
+    (transpose convs only)."""
+
+    def __init__(self, in_ch: int, out_ch: int, num_layer: int) -> None:
+        super().__init__()
+        self.transp_conv_init = ConvTranspose3d(in_ch, out_ch)
+        self.blocks = nn.ModuleList(ConvTranspose3d(out_ch, out_ch) for _ in range(num_layer))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.transp_conv_init(x)
+        for blk in self.blocks:
+            y = blk(y)
+        return y
+
+
+class UnetrUpBlock(nn.Module):
+    """Decoder stage: upsample, concat ``[up ; skip]``, residual conv block."""
+
+    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True) -> None:
+        super().__init__()
+        self.transp_conv = ConvTranspose3d(in_ch, out_ch)
+        self.conv_block = _conv_block(2 * out_ch, out_ch, res_block)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=1))
+
+
+class UnetOutBlock(nn.Module):
+    """1x1x1 conv to class logits."""
+
+    def __init__(self, in_ch: int, n_classes: int) -> None:
+        super().__init__()
+        self.conv = Conv3d(in_ch, n_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)

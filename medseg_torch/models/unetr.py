@@ -1,0 +1,154 @@
+"""UNETR: ViT-encoded 3D U-Net, NCDHW (counterpart of ``medseg/models/unetr.py``).
+
+Same topology contract: ViT encoder; decoder taps at ``num_layers // 4``
+multiples plus the final normed output; encoder1 on the raw input,
+encoder2/3/4 upsample the token grids by 8x/4x/2x; decoder5..decoder2
+upsample and merge skips; 1x1x1 out head. ``proj_feat`` is a reshape plus a
+permute to NCDHW.
+
+``dtype`` is the compute dtype of the fused serving forward
+(``medseg_torch.kernels.unetr_of.fast_apply_v3``): the kernels' operand type
+there. The module's own ``forward`` computes in the parameters' dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from medseg_torch.models.blocks import (
+    UnetOutBlock,
+    UnetrBasicBlock,
+    UnetrPrUpBlock,
+    UnetrUpBlock,
+)
+from medseg_torch.models.vit import ViT
+
+
+class UNETR(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 14,
+        img_size: tuple[int, int, int] = (96, 96, 96),
+        feature_size: int = 16,
+        hidden_size: int = 768,
+        mlp_dim: int = 3072,
+        num_heads: int = 12,
+        num_layers: int = 12,
+        patch_size: int = 16,
+        pos_embed: str = "perceptron",
+        norm_name: str = "instance",
+        res_block: bool = True,
+        conv_block: bool = False,
+        dropout_rate: float = 0.0,
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        super().__init__()
+        if not 0 <= dropout_rate <= 1:
+            raise ValueError("dropout_rate should be between 0 and 1.")
+        if hidden_size % num_heads != 0:
+            raise ValueError("hidden size should be divisible by num_heads.")
+        if pos_embed not in ("conv", "perceptron"):
+            # same enum + exception class as the reference ctor
+            raise KeyError(f"Position embedding layer of type {pos_embed} is not supported.")
+        if conv_block:
+            raise NotImplementedError(
+                "conv_block=True (conv blocks between the encoder upsamplings) is not "
+                "ported; every reference run uses False"
+            )
+        if norm_name != "instance":
+            # the fused serving kernels compute instance statistics; other
+            # norms are rejected loudly rather than silently approximated
+            raise ValueError(
+                f"norm_name {norm_name!r} is not supported (only 'instance'; "
+                "the kernel epilogues compute instance statistics)"
+            )
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.img_size = tuple(img_size)
+        self.feature_size = feature_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.patch_size = patch_size
+        self.res_block = res_block
+        self.dtype = dtype
+        self.feat_size = tuple(s // patch_size for s in self.img_size)
+        self.vit = ViT(
+            in_channels, self.img_size, patch_size, hidden_size, mlp_dim, num_layers,
+            num_heads, pos_embed, dropout_rate,
+        )
+        fs = feature_size
+        self.encoder1 = UnetrBasicBlock(in_channels, fs, res_block=res_block)
+        self.encoder2 = UnetrPrUpBlock(hidden_size, fs * 2, num_layer=2)
+        self.encoder3 = UnetrPrUpBlock(hidden_size, fs * 4, num_layer=1)
+        self.encoder4 = UnetrPrUpBlock(hidden_size, fs * 8, num_layer=0)
+        self.decoder5 = UnetrUpBlock(hidden_size, fs * 8, res_block=res_block)
+        self.decoder4 = UnetrUpBlock(fs * 8, fs * 4, res_block=res_block)
+        self.decoder3 = UnetrUpBlock(fs * 4, fs * 2, res_block=res_block)
+        self.decoder2 = UnetrUpBlock(fs * 2, fs, res_block=res_block)
+        self.out = UnetOutBlock(fs, out_channels)
+
+    def proj_feat(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, N, hidden) -> (B, hidden, fd, fh, fw)."""
+        b = tokens.shape[0]
+        return tokens.reshape(b, *self.feat_size, self.hidden_size).permute(0, 4, 1, 2, 3)
+
+    def forward(
+        self,
+        x_in: torch.Tensor,
+        *,
+        return_encoder_features: bool = True,
+    ):
+        """x_in: (B, C, D, H, W). Returns ``(enc4, logits)`` like the
+        reference's local variant, or logits only with
+        ``return_encoder_features=False``."""
+        x, hidden_states = self.vit(x_in)
+        q = self.num_layers // 4
+        enc1 = self.encoder1(x_in)
+        enc2 = self.encoder2(self.proj_feat(hidden_states[1 * q]))
+        enc3 = self.encoder3(self.proj_feat(hidden_states[2 * q]))
+        enc4 = self.encoder4(self.proj_feat(hidden_states[3 * q]))
+        dec3 = self.decoder5(self.proj_feat(x), enc4)
+        dec2 = self.decoder4(dec3, enc3)
+        dec1 = self.decoder3(dec2, enc2)
+        outf = self.decoder2(dec1, enc1)
+        logits = self.out(outf)
+        if return_encoder_features:
+            return enc4, logits
+        return logits
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init drawn from ``generator`` alone: conv/linear kernels
+    N(0, 1/fan_in) (flax's lecun scale), the positional embedding N(0, 0.02^2),
+    biases 0 and norm scales 1."""
+    for name, p in model.named_parameters():
+        if name.endswith("position_embeddings"):
+            std = 0.02
+        elif p.ndim >= 2:
+            std = (p.numel() / p.shape[0]) ** -0.5
+        else:
+            p.fill_(1.0 if ".norm" in name and name.endswith("weight") else 0.0)
+            continue
+        p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32) * std)
+    return model
+
+
+def unetr_b16(
+    in_channels: int, out_channels: int, crop_size: int, dtype: torch.dtype | None = None,
+) -> UNETR:
+    """The one configuration every reference run uses: ViT-B, feature_size 16."""
+    return UNETR(
+        in_channels=in_channels,
+        out_channels=out_channels,
+        img_size=(crop_size, crop_size, crop_size),
+        feature_size=16,
+        hidden_size=768,
+        mlp_dim=3072,
+        num_heads=12,
+        res_block=True,
+        dropout_rate=0.0,
+        dtype=dtype,
+    )

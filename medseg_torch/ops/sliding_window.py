@@ -1,0 +1,205 @@
+"""Sliding-window whole-volume inference (counterpart of
+``medseg/ops/sliding_window.py``).
+
+The MONAI 0.6.0 ``sliding_window_inference`` contract, as the JAX package
+reproduces it: every spatial dim padded up to the ROI (half before); window
+starts ``k * int(roi * (1 - overlap))`` clipped to ``dim - roi``; each window
+weighted by an importance map (constant, or a Gaussian with
+``sigma = sigma_scale * roi``) and normalized by the accumulated importance;
+padding cropped at the end. The grid, importance and count map are the same
+numpy code as the JAX package's, so they agree exactly.
+
+Windows run ``sw_batch`` at a time (the grid padded with zero-weight windows
+to a multiple of it, as in the JAX scan). The blend weight
+``importance * 1/count * validity`` is either multiplied here or handed to
+``apply_fn`` (``apply_takes_weight``, the fused forward folds it into its
+out-head kernel). The overlap-add goes into an fp32 ``(K, D, H, W)``
+accumulator by tensor slicing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import lru_cache
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class SlidingWindowSpec:
+    roi: tuple[int, int, int]
+    overlap: float = 0.25
+    sw_batch: int = 4
+    mode: str = "constant"  # "constant" | "gaussian"
+    sigma_scale: float = 0.125
+
+
+def _scan_interval(image_size: Sequence[int], roi: Sequence[int], overlap: float):
+    out = []
+    for dim, r in zip(image_size, roi):
+        if r == dim:
+            out.append(r)
+        else:
+            out.append(max(1, int(r * (1.0 - overlap))))
+    return tuple(out)
+
+
+def per_dim_window_starts(
+    image_size: Sequence[int], roi: Sequence[int], overlap: float
+) -> list[np.ndarray]:
+    """Per-dimension window starts, MONAI ``dense_patch_slices`` semantics:
+    ``k * interval`` clipped to ``dim - roi``, duplicates removed."""
+    intervals = _scan_interval(image_size, roi, overlap)
+    per_dim = []
+    for dim, r, step in zip(image_size, roi, intervals):
+        n = int(math.ceil((dim - r) / step)) + 1
+        starts = np.minimum(np.arange(n) * step, dim - r)
+        per_dim.append(np.unique(starts).astype(np.int64))
+    return per_dim
+
+
+def compute_window_starts(
+    image_size: Sequence[int], roi: Sequence[int], overlap: float
+) -> np.ndarray:
+    """Dense window-start grid (the product of ``per_dim_window_starts``).
+    Returns (N, 3) int32."""
+    per_dim = per_dim_window_starts(image_size, roi, overlap)
+    grid = np.stack(np.meshgrid(*per_dim, indexing="ij"), axis=-1).reshape(-1, len(per_dim))
+    return grid.astype(np.int32)
+
+
+def constant_importance(roi: Sequence[int]) -> np.ndarray:
+    return np.ones(tuple(roi), dtype=np.float32)
+
+
+def gaussian_importance(roi: Sequence[int], sigma_scale: float = 0.125) -> np.ndarray:
+    """Separable gaussian window weight, peak-normalized to 1, zeros clamped
+    to the smallest positive value (MONAI ``compute_importance_map``)."""
+    maps = []
+    for r in roi:
+        sigma = sigma_scale * r
+        center = (r - 1) / 2.0
+        x = np.arange(r, dtype=np.float64)
+        maps.append(np.exp(-0.5 * ((x - center) / sigma) ** 2))
+    w = maps[0][:, None, None] * maps[1][None, :, None] * maps[2][None, None, :]
+    w = w / w.max()
+    w = np.maximum(w, np.min(w[w > 0]))
+    return w.astype(np.float32)
+
+
+def _pad_amounts(shape: Sequence[int], roi: Sequence[int], multiple: int):
+    pads = []
+    for dim, r in zip(shape, roi):
+        target = max(dim, r)
+        if multiple > 1:
+            target = int(math.ceil(target / multiple) * multiple)
+        extra = target - dim
+        pads.append((extra // 2, extra - extra // 2))
+    return pads
+
+
+def _importance(roi, mode: str, sigma_scale: float) -> np.ndarray:
+    return constant_importance(roi) if mode == "constant" else gaussian_importance(roi, sigma_scale)
+
+
+@lru_cache(maxsize=32)
+def _count_map_cached(padded_shape, roi, overlap, mode, sigma_scale) -> np.ndarray:
+    starts = compute_window_starts(padded_shape, roi, overlap)
+    imp = _importance(roi, mode, sigma_scale)
+    count = np.zeros(padded_shape, dtype=np.float32)
+    for s in starts:
+        count[s[0] : s[0] + roi[0], s[1] : s[1] + roi[1], s[2] : s[2] + roi[2]] += imp
+    return count
+
+
+@lru_cache(maxsize=4)
+def _device_grid_cached(padded_shape, roi, overlap, mode, sigma_scale, sw_batch, device):
+    """Grid constants, uploaded once per (shape, spec, device): starts
+    padded to a multiple of ``sw_batch`` (host, (n_batches, sw_batch, 3)),
+    validity (device, (n_batches, sw_batch)), importance and 1/count."""
+    starts = compute_window_starts(padded_shape, roi, overlap)
+    n = starts.shape[0]
+    n_pad = (-n) % sw_batch
+    starts = np.concatenate([starts, np.zeros((n_pad, 3), np.int32)], axis=0)
+    valid = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
+    n_batches = starts.shape[0] // sw_batch
+    inv_count = 1.0 / _count_map_cached(padded_shape, roi, overlap, mode, sigma_scale)
+    return (
+        starts.reshape(n_batches, sw_batch, 3),
+        torch.from_numpy(valid.reshape(n_batches, sw_batch)).to(device),
+        torch.from_numpy(_importance(roi, mode, sigma_scale)).to(device),
+        torch.from_numpy(inv_count).to(device),
+    )
+
+
+def sliding_window_inference(
+    volume,
+    apply_fn: Callable,
+    n_classes: int,
+    spec: SlidingWindowSpec,
+    *,
+    device: torch.device | str,
+    apply_takes_weight: bool = False,
+) -> torch.Tensor:
+    """Whole-volume inference.
+
+    Args:
+      volume: (D, H, W, C) or (1, D, H, W, C), numpy or tensor.
+      apply_fn: ``apply_fn(windows) -> logits`` mapping a (sw_batch, C, rd,
+        rh, rw) window stack to (sw_batch, K', rd, rh, rw) logits, K' >=
+        n_classes (extra channels are blended and cropped); with
+        ``apply_takes_weight``, ``apply_fn(windows, wgt)`` receives the blend
+        weight (sw_batch, 1, rd, rh, rw) and returns pre-weighted logits.
+      n_classes: K.
+      spec: grid/blending configuration.
+      device: where the windows, the model and the accumulator live.
+
+    Returns:
+      (D, H, W, K) float32 blended logits at the original size, on ``device``.
+    """
+    device = torch.device(device)
+    vol = torch.as_tensor(volume)
+    squeeze = vol.ndim == 5
+    if squeeze:
+        if vol.shape[0] != 1:
+            raise ValueError("sliding_window_inference expects a single volume")
+        vol = vol[0]
+    spatial = tuple(int(s) for s in vol.shape[:3])
+    roi = tuple(spec.roi)
+    # pad up to the ROI only: the JAX package's bucketed padding bounds jit
+    # recompiles, which eager PyTorch does not have
+    pads = _pad_amounts(spatial, roi, 1)
+    padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
+    vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
+    if any(lo or hi for lo, hi in pads):
+        flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
+        vol = F.pad(vol, flat)
+    starts, valid, imp, inv_count = _device_grid_cached(
+        padded, roi, spec.overlap, spec.mode, spec.sigma_scale, spec.sw_batch, device
+    )
+    rd, rh, rw = roi
+
+    def window(t: torch.Tensor, s) -> torch.Tensor:
+        return t[..., s[0] : s[0] + rd, s[1] : s[1] + rh, s[2] : s[2] + rw]
+
+    acc = None
+    for starts_b, valid_b in zip(starts, valid):
+        windows = torch.stack([window(vol, s) for s in starts_b])
+        inv_w = torch.stack([window(inv_count, s) for s in starts_b])
+        wgt = (imp[None] * inv_w * valid_b[:, None, None, None])[:, None]
+        if apply_takes_weight:
+            out = apply_fn(windows, wgt)
+        else:
+            out = apply_fn(windows).float() * wgt
+        if acc is None:
+            acc = torch.zeros((out.shape[1],) + padded, dtype=torch.float32, device=device)
+        for s, o in zip(starts_b, out):
+            window(acc, s).add_(o)
+    (d0, _), (h0, _), (w0, _) = pads
+    d, h, w = spatial
+    out = acc[:n_classes, d0 : d0 + d, h0 : h0 + h, w0 : w0 + w].permute(1, 2, 3, 0).contiguous()
+    return out[None] if squeeze else out

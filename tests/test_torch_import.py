@@ -1,0 +1,53 @@
+"""The PyTorch port imports no JAX, flax or triton.
+
+The port runs where JAX is not installed, and triton is imported only inside
+a function that launches a kernel. ``tests/conftest.py`` has already imported jax into
+this process, so the check runs in a fresh interpreter.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import medseg_torch
+names = sorted(m.name for m in pkgutil.walk_packages(medseg_torch.__path__, "medseg_torch."))
+for name in names:
+    importlib.import_module(name)
+print(",".join(names))
+print(",".join(sorted(m for m in ("jax", "flax", "triton") if m in sys.modules)))
+"""
+
+
+def test_port_imports_no_jax_flax_or_triton():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    modules, heavy = proc.stdout.split("\n")[:2]
+    for name in (
+        "medseg_torch.models.blocks", "medseg_torch.models.vit", "medseg_torch.models.unetr",
+        "medseg_torch.engine.checkpoint", "medseg_torch.engine.evaluate",
+        "medseg_torch.kernels._build", "medseg_torch.kernels.conv_of",
+        "medseg_torch.kernels.unetr_of", "medseg_torch.ops.sliding_window",
+        "medseg_torch.ops.post", "medseg_torch.ops.metrics",
+    ):
+        assert name in modules.split(","), name
+    assert heavy == "", f"imported: {heavy}"
+
+
+def test_import_builds_nothing():
+    """Importing the kernels module compiles nothing: the library is built
+    at the first launch on a CUDA tensor."""
+    probe = (
+        "import medseg_torch.kernels.conv_of, medseg_torch.kernels._build as b; "
+        "print(b._lib is None and b.build_seconds is None)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "True"

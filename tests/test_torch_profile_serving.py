@@ -1,0 +1,34 @@
+"""The serving profiler's bookkeeping: kernel classes by name and busy time
+as the union of kernel intervals (the profiling itself needs the card)."""
+
+import pytest
+
+from medseg_torch.tools import profile_serving as ps
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void medseg::(anonymous namespace)::conv3_kernel<float, 0, false, 16>(medseg::ConvArgs)",
+     "K1 conv3x3x3_of"),
+    ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, (medseg::Mode)1, false, 32>"
+     "(medseg::ConvArgs)", "K1 conv3x3x3_of"),
+    ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, 2, true, 32>(medseg::ConvArgs)",
+     "K5 conv3x3x3_of_cat2"),
+    ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, 3, true, 16>(medseg::ConvArgs)",
+     "K2 conv3x3x3_of_combine"),
+    ("void medseg::outhead_kernel<__nv_bfloat16>(...)", "K3 outhead_of"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
+    ("void at::native::reduce_kernel<512, 1, ...>", "reduction"),
+    ("pytorch_flash::flash_fwd_kernel<...>", "SDPA attention"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS/cuDNN"),
+    ("nvjet_tst_64x80_64x11_2x1_v_bz_bias_TNT", "cuBLAS/cuDNN"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float, false>",
+     "layer norm"),
+    ("some_unknown_kernel", "other"),
+])
+def test_kernel_class(name, cls):
+    assert ps.kernel_class(name) == cls
+
+
+def test_busy_time_is_the_union_of_intervals():
+    assert ps._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+    assert ps._busy_us([(3, 4)]) == 1
