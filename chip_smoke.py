@@ -4,10 +4,12 @@
     python3 chip_smoke.py        # from the repository root, no arguments
 
 Builds the port's CUDA kernels from ``medseg_torch/kernels/csrc`` and drives
-its serving path, whole-volume sliding-window inference of UNETR-B/16
-(BASELINE config 4: a 512x512x160 one-channel CT volume, 14 classes, 96^3
-windows, overlap 0.5, Gaussian blend, sw_batch 4), with random weights from
-a seed. Phases, each raising on failure:
+its two paths with random weights from a seed: serving, whole-volume
+sliding-window inference of UNETR-B/16 (BASELINE config 4: a 512x512x160
+one-channel CT volume, 14 classes, 96^3 windows, overlap 0.5, Gaussian blend,
+sw_batch 4), and training, the supervised step of UNETR-B/16 (BASELINE
+config 5: batch 4 of 96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight
+decay 1e-5). Phases, each raising on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; TF32 off
    for every fp32 reference;
@@ -18,7 +20,14 @@ a seed. Phases, each raising on failure:
    one batch of four 96^3 windows;
 5. ``Validator.infer_volume`` on a small volume against the plain forward,
    then on the config-4 volume (one warm run, one timed run whose kernel
-   launches are counted).
+   launches are counted);
+6. the training step's kernels (K6, K1's data gradient, K7, K8) against
+   their plain versions at its shapes, fp32 and bf16, timed;
+7. the training step: loss and gradients through the kernels (bf16, remat)
+   against the fp32 module without kernels at the same weights and batch;
+   then ``make_train_step``: one warm step and 10 timed steps on that batch,
+   whose losses must be finite and fall and whose kernel launches are
+   counted.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -26,6 +35,7 @@ The line before the last is the JSON kernel table; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -34,21 +44,34 @@ import time
 import numpy as np
 import torch
 
-KERNEL_SOURCES = {  # wrapper -> (CUDA source, TPU kernel it replaces)
-    "conv3x3x3_of": ("medseg_torch/kernels/csrc/conv_of.cu", "medseg/kernels/conv_of.py:761"),
-    "conv3x3x3_of_cat2": ("medseg_torch/kernels/csrc/conv_of.cu", "medseg/kernels/conv_of.py:1044"),
-    "conv3x3x3_of_combine": ("medseg_torch/kernels/csrc/conv_of.cu", "medseg/kernels/conv_of.py:1205"),
-    "outhead_of": ("medseg_torch/kernels/csrc/outhead_of.cu", "medseg/kernels/conv_of.py:1423"),
-}
-# the bf16 case of each kernel whose time stands in the kernel table: the
-# shape config 4 runs most (kernel_check case names)
-TIMED_CASE = {
-    "conv3x3x3_of": "enc1.conv2 16->16 affine @4x96^3",
-    "conv3x3x3_of_cat2": "dec3.conv1 (32+32)->32 @4x48^3",
-    "conv3x3x3_of_combine": "dec2.conv1 (16+16)->16 x1ch @4x96^3",
-    "outhead_of": "out head 16->16 scaled @4x96^3",
+KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of its time)
+    "conv3x3x3_of": ("medseg_torch/kernels/csrc/conv_of.cu", "medseg/kernels/conv_of.py:761",
+                     "enc1.conv2 16->16 affine @4x96^3"),
+    "conv3x3x3_of_cat2": ("medseg_torch/kernels/csrc/conv_of.cu",
+                          "medseg/kernels/conv_of.py:1044", "dec3.conv1 (32+32)->32 @4x48^3"),
+    "conv3x3x3_of_combine": ("medseg_torch/kernels/csrc/conv_of.cu",
+                             "medseg/kernels/conv_of.py:1205",
+                             "dec2.conv1 (16+16)->16 x1ch @4x96^3"),
+    "outhead_of": ("medseg_torch/kernels/csrc/outhead_of.cu", "medseg/kernels/conv_of.py:1423",
+                   "out head 16->16 scaled @4x96^3"),
+    "conv3x3x3_wgrad_of": ("medseg_torch/kernels/csrc/wgrad_of.cu",
+                           "medseg/kernels/conv_of.py:914", "wgrad enc1.conv2 16->16 @4x96^3"),
+    "dice_ce_sums": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:133",
+                     "dice_ce_sums 14 classes @4x96^3"),
+    "dice_ce_bwd": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:166",
+                    "dice_ce_bwd 14 classes @4x96^3"),
 }
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
+# the training step, bf16 through the kernels vs the fp32 module without them
+# (same weights and batch): relative error of the loss and relative L2 of all
+# gradients concatenated, measured 1.4e-4 and 9.4e-3 on an H100; the bounds
+# leave a margin of about 7x and 5x
+TRAIN_LOSS_REL_BOUND = 1e-3
+TRAIN_GRAD_REL_L2_BOUND = 5e-2
+TRAIN_STEPS = 10
+TRAIN_BATCH, CROP, N_CLASSES = 4, 96, 14  # BASELINE config 5
+SERVING_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
+TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd")
 
 
 def log(msg: str) -> None:
@@ -82,27 +105,54 @@ def phase_build() -> None:
         f"{'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'})")
 
 
-def phase_kernels(device) -> dict:
+def all_launches() -> dict:
+    from medseg_torch.kernels import conv_of, loss_of
+
+    return {fn.__name__: fn.launches for fn in conv_of.KERNELS + loss_of.KERNELS}
+
+
+def reset_launches() -> None:
+    from medseg_torch.kernels import conv_of, loss_of
+
+    conv_of.reset_launches()
+    loss_of.reset_launches()
+
+
+def phase_kernels(device, table: dict, cases_fn, label: str) -> None:
+    """Every case of ``cases_fn`` in fp32 and bf16, kernel vs plain; fills
+    each kernel's row of ``table`` (largest error; times and bound of its
+    timed bf16 case)."""
     from medseg_torch.kernels import kernel_check
 
-    table = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
-        for case in kernel_check.kernel_cases(device, dtype):
+        for case in cases_fn(device, dtype):
             r = kernel_check.run_case(case, dtype, timed=True)
-            entry = table[case.kernel.__name__]
+            name = case.kernel.__name__
+            entry = table.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
-            if dtype == torch.bfloat16 and case.name == TIMED_CASE[case.kernel.__name__]:
-                entry["ms"], entry["plain_ms"] = r["ms"], r["plain_ms"]
-            log(f"[kernel] {str(dtype)[6:]:8s} {case.name:44s} out_err {r['out_err']:.2e} "
-                f"stats_err {r['stats_err']:.2e} kernel {r['ms']:8.3f} ms plain "
-                f"{r['plain_ms']:8.3f} ms {'ok' if r['ok'] else 'FAIL'}")
+            if dtype == torch.bfloat16 and case.name == KERNELS[name][2]:
+                entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "library_cl_ms")})
+            lib = "" if r["library_ms"] is None else f" library {r['library_ms']:8.3f} ms"
+            if r["library_cl_ms"] is not None:
+                lib += f" (channels_last {r['library_cl_ms']:.3f})"
+            log(f"[{label}] {str(dtype)[6:]:8s} {case.name:44s} out_err {r['out_err']:.2e} "
+                f"sums_err {r['stats_err']:.2e} kernel {r['ms']:8.3f} ms plain "
+                f"{r['plain_ms']:8.3f} ms{lib} bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+                f"{'ok' if r['ok'] else 'FAIL'}")
             if not r["ok"]:
                 failed.append((str(dtype), case.name))
         torch.cuda.empty_cache()
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
-    return table
+
+
+def fp32_twin(model):
+    """The same weights in a module that computes in fp32."""
+    twin = copy.deepcopy(model)
+    twin.dtype = None
+    return twin
 
 
 def phase_forward(device, card: str):
@@ -114,8 +164,9 @@ def phase_forward(device, card: str):
     model = init_weights(unetr_b16(1, 14, 96, dtype=torch.bfloat16), g).to(device).eval()
     x = torch.randn((4, 1, 96, 96, 96), generator=g).to(device)
     weights = fused_weights(model)  # cast once, as the Validator does
+    model_fp32 = fp32_twin(model)
     with torch.no_grad():
-        ref = model(x, return_encoder_features=False)
+        ref = model_fp32(x, return_encoder_features=False)
     got = fast_apply_v3(model, x, weights)[:, :14]
     if not torch.isfinite(got).all():
         raise RuntimeError("fused forward: non-finite logits")
@@ -123,18 +174,19 @@ def phase_forward(device, card: str):
     agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
     with torch.no_grad():
         fused_ms = kernel_check.time_ms(lambda: fast_apply_v3(model, x, weights), reps=5)
-        plain_ms = kernel_check.time_ms(lambda: model(x, return_encoder_features=False), reps=5)
+        plain_ms = kernel_check.time_ms(
+            lambda: model_fp32(x, return_encoder_features=False), reps=5
+        )
     log(f"[forward] UNETR-B/16 4x96^3: fused bf16 vs module fp32 rel L2 {err:.3e} "
         f"(bound {FWD_REL_L2_BOUND}), argmax agreement {agree:.5f}; fused {fused_ms:.2f} ms, "
         f"module fp32 {plain_ms:.2f} ms per batch of 4 [{card}]")
     if not err <= FWD_REL_L2_BOUND:
         raise RuntimeError(f"fused forward rel L2 {err} above {FWD_REL_L2_BOUND}")
-    return model
+    return model, model_fp32
 
 
-def phase_slice(model, device, card: str) -> dict:
+def phase_slice(model, model_fp32, device, card: str) -> dict:
     from medseg_torch.engine.evaluate import Validator
-    from medseg_torch.kernels import conv_of
     from medseg_torch.ops.sliding_window import SlidingWindowSpec, sliding_window_inference
 
     spec = SlidingWindowSpec(roi=(96, 96, 96), overlap=0.5, sw_batch=4, mode="gaussian")
@@ -145,7 +197,8 @@ def phase_slice(model, device, card: str) -> dict:
     got = validator.infer_volume(small)
     with torch.no_grad():
         ref = sliding_window_inference(
-            small, lambda w: model(w, return_encoder_features=False), 14, spec, device=device
+            small, lambda w: model_fp32(w, return_encoder_features=False), 14, spec,
+            device=device,
         )
     err = rel_l2(got, ref)
     log(f"[slice] 128x128x96 volume: Validator (kernels, bf16) vs plain fp32 SWI rel L2 {err:.3e}")
@@ -155,38 +208,130 @@ def phase_slice(model, device, card: str) -> dict:
     volume = rng.standard_normal((512, 512, 160, 1), dtype=np.float32)
     validator.infer_volume(volume)  # warm
     torch.cuda.synchronize()
-    conv_of.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = validator.infer_volume(volume)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
+    launches = all_launches()
     if tuple(out.shape) != (512, 512, 160, 14) or out.dtype != torch.float32:
         raise RuntimeError(f"config-4 output {tuple(out.shape)} {out.dtype}")
     if not torch.isfinite(out).all():
         raise RuntimeError("config-4 output has non-finite values")
     log(f"[slice] config 4 512x512x160: {seconds:.3f} s/volume, {300 / seconds:.1f} windows/s, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in SERVING_KERNELS if launches[name] == 0]
     if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
+        raise RuntimeError(f"kernels not launched on the serving path: {missing}")
+    return launches
+
+
+def phase_train(device, card: str) -> dict:
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.engine.train import make_loss_fn, make_train_step
+    from medseg_torch.kernels import conv3d
+    from medseg_torch.models.unetr import unetr_b16
+    from medseg_torch.ops.losses import dice_ce_loss
+
+    g = torch.Generator().manual_seed(0)
+    model = unetr_b16(1, N_CLASSES, CROP, dtype=torch.bfloat16, remat=True)
+    state = create_train_state(model, generator=g, learning_rate=1e-4, weight_decay=1e-5,
+                               device=device)
+    image = torch.randn((TRAIN_BATCH, 1, CROP, CROP, CROP), generator=g).to(device)
+    label = torch.randint(0, N_CLASSES, (TRAIN_BATCH, CROP, CROP, CROP), generator=g,
+                          dtype=torch.int32).to(device)
+
+    # (a) kernels vs the fp32 module without kernels (TF32 off), same weights
+    loss_k = make_loss_fn("ct")(model, image, label)
+    loss_k.backward()
+    loss_k = loss_k.item()
+    grads_k = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    ref = fp32_twin(model)
+    route_min_hw = conv3d.OF_MIN_HW
+    conv3d.OF_MIN_HW = float("inf")  # no conv routed: cuDNN everywhere
+    try:
+        loss_r = dice_ce_loss(ref(image, return_encoder_features=False), label, softmax=True,
+                              to_onehot_y=True)
+        loss_r.backward()
+    finally:
+        conv3d.OF_MIN_HW = route_min_hw
+    loss_r = loss_r.item()
+    diff2 = ref2 = 0.0
+    per_leaf = []
+    for n, p in ref.named_parameters():
+        d2 = (grads_k[n] - p.grad).square().sum().item()
+        r2 = p.grad.square().sum().item()
+        diff2, ref2 = diff2 + d2, ref2 + r2
+        per_leaf.append(((d2 / r2) ** 0.5 if r2 > 0 else float("inf"), n, r2))
+    del ref, grads_k
+    torch.cuda.empty_cache()
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    grad_err = (diff2 / ref2) ** 0.5
+    # leaves carrying at least 0.01% of the reference's squared gradient norm
+    per_leaf = [(e, n) for e, n, r2 in per_leaf if r2 >= 1e-4 * ref2]
+    worst = ", ".join(f"{n} {e:.2e}" for e, n in sorted(per_leaf, reverse=True)[:4])
+    log(f"[train] loss bf16 kernels {loss_k:.6f} vs fp32 module {loss_r:.6f}: rel err "
+        f"{loss_err:.3e} (bound {TRAIN_LOSS_REL_BOUND}); global gradient rel L2 {grad_err:.3e} "
+        f"(bound {TRAIN_GRAD_REL_L2_BOUND}); largest per-leaf rel L2 (reported, not bounded; leaves with >= 1e-4 of "
+        f"the squared norm): "
+        f"{worst}")
+    if not (loss_err <= TRAIN_LOSS_REL_BOUND and grad_err <= TRAIN_GRAD_REL_L2_BOUND):
+        raise RuntimeError(f"training step: loss rel err {loss_err}, gradient rel L2 {grad_err}")
+
+    # (b)-(d) the step itself on that batch
+    step = make_train_step(model, task="ct")
+    batch = {"image": image, "label": label}
+    state, first = step(state, batch)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [first]
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = all_launches()
+    losses = [v.item() for v in losses]
+    log(f"[train] UNETR-B/16 {TRAIN_BATCH}x{CROP}^3 bf16 remat: {1e3 * seconds:.2f} ms/step, "
+        f"{TRAIN_BATCH / seconds:.2f} patches/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"[{card}]; losses {['%.6f' % v for v in losses]}; launches {launches}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"training step: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training step: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    missing = [name for name in TRAIN_KERNELS if launches[name] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched in the training steps: {missing}")
     return launches
 
 
 def main() -> int:
+    from medseg_torch.kernels import kernel_check
+
     device, card = phase_device()
     phase_build()
-    table = phase_kernels(device)
-    model = phase_forward(device, card)
-    launches = phase_slice(model, device, card)
-    kernels = [
-        {
+    table: dict = {}
+    phase_kernels(device, table, kernel_check.kernel_cases, "kernel")
+    model, model_fp32 = phase_forward(device, card)
+    serving = phase_slice(model, model_fp32, device, card)
+    del model, model_fp32
+    torch.cuda.empty_cache()
+    phase_kernels(device, table, kernel_check.training_cases, "train-kernel")
+    train = phase_train(device, card)
+    kernels = []
+    for name, (src, tpu, _) in KERNELS.items():
+        row = table[name]
+        kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": table[name]["max_abs_err"],
-            "ms": table[name]["ms"], "plain_ms": table[name]["plain_ms"],
-        }
-        for name, (src, tpu) in KERNEL_SOURCES.items()
-    ]
+            "launches": serving[name] if name in SERVING_KERNELS else train[name],
+            "launches_by_path": {"serving": serving[name], "train": train[name]},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Engine of the PyTorch port: the weight bridge and the validator."""
+"""Engine of the PyTorch port: the weight bridge, the validator, the train
+state, the training step and loop."""

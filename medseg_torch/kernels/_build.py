@@ -1,9 +1,10 @@
 """Build and load the port's CUDA library.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes), under ``_build/`` beside this file, named by the hash of the
-sources so that a change of any source rebuilds it. The library is loaded
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds, not minutes), under ``_build/`` beside this file, named by the
+hash of the sources so that a change of any source rebuilds it. The library is loaded
 with ``ctypes``; every pointer and the stream pass as ``c_void_p``. Each C
 entry point returns a ``cudaError_t`` value, which ``check`` turns into an
 exception. A failed build raises with nvcc's stderr.
@@ -22,8 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +35,12 @@ _SIGNATURES = {
     # device, bf16, scaled, z, r, az, bz, ar, br, kout, bias, scale, out, B,
     # C, K, V, stream
     "medseg_outhead": [_I] * 3 + [_P] * 10 + [_I] * 3 + [ctypes.c_longlong, _P],
+    # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
+    "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
+    # device, bf16, logits, labels, ce, inter, pred, ground, B, K, V, blocks, stream
+    "medseg_dice_ce_sums": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _P],
+    # device, bf16, logits, labels, ca, cb, cec, dlogits, B, K, V, blocks, stream
+    "medseg_dice_ce_bwd": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -64,6 +70,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (neither on PATH nor under $CUDA_HOME/bin)")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Runs the commands in parallel; raises with the stderr of each failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def library_path() -> Path:
     """Build the library if its sources changed; return its path."""
     global build_seconds
@@ -71,16 +90,20 @@ def library_path() -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, target)
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return target
 

@@ -1,7 +1,7 @@
-"""Fused conv kernels of the serving forward (counterpart of
-``medseg/kernels/conv_of.py``).
+"""Fused conv kernels of the serving forward and the conv backward of the
+training step (counterpart of ``medseg/kernels/conv_of.py``).
 
-Four wrappers, each beside its plain PyTorch version in this module:
+Five wrappers, each beside its plain PyTorch version in this module:
 
 - ``conv3x3x3_of`` (K1): 3x3x3 same-pad conv, optional input prologue
   ``leaky(a*x + b)`` (the previous instance norm + activation), optional 1x1x1
@@ -13,7 +13,13 @@ Four wrappers, each beside its plain PyTorch version in this module:
 - ``conv3x3x3_of_combine`` (K2): the same over
   ``[up ; leaky(ay*y + by + ax*x + bx)]`` built from three streams;
 - ``outhead_of`` (K3): ``leaky(az*z + bz + ar*res + br)`` -> 1x1x1 head + bias,
-  times a per-voxel blend weight.
+  times a per-voxel blend weight;
+- ``conv3x3x3_wgrad_of`` (K6): the filter gradient of a no-prologue 3x3x3
+  conv, fp32.
+
+K1 is instantiated for 16 and 32 output channels; a 64-wide conv (the data
+gradient of dec3.conv1, 32 -> 64) runs as two 32-wide launches over the
+halves of its weight, concatenated.
 
 Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
 weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
@@ -32,6 +38,11 @@ from medseg_torch.models.blocks import NORM_EPS, leaky_relu
 
 _MODES = {"plain": 0, "affine_leaky": 1, "cat2": 2, "combine": 3}
 KERNEL_C_OUT = (16, 32)  # output widths the conv kernel is instantiated for
+SPLIT_C_OUT = 64  # run as two KERNEL_C_OUT[-1]-wide launches
+WGRAD_C_OUT = (16, 32)  # cotangent widths the wgrad kernel is instantiated for
+WGRAD_CC = 8  # input channels per wgrad block (WCC of csrc/wgrad_of.cu)
+WGRAD_TILE = 16  # (y, x) edge of a wgrad voxel tile (WTX = WTY)
+WGRAD_BLOCKS_PER_SM = 3  # 68 KB of shared memory per block: three fit in 227 KB
 OUTHEAD_MAX_C = 64  # MAXC of csrc/outhead_of.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -81,6 +92,14 @@ def conv3x3x3_of_combine_plain(up, y, x1, ay, by, ax, bx, weight, wres):
     return _conv_stats_plain(torch.cat([up.float(), comb], dim=1), weight, wres)
 
 
+def conv3x3x3_wgrad_of_plain(x, g):
+    """dW (CO, C, 3, 3, 3) fp32 of ``conv3d(x, W, padding=1)`` for the
+    cotangent ``g``; operands in the compute dtype ``x.dtype``, fp32 math."""
+    return torch.nn.grad.conv3d_weight(
+        x.float(), (g.shape[1], x.shape[1], 3, 3, 3), g.float(), padding=1
+    )
+
+
 def outhead_of_plain(z, res, az, bz, ar, br, kout, bias, scale=None):
     comb = leaky_relu(z.float() * _bc(az) + _bc(bz) + res.float() * _bc(ar) + _bc(br))
     comb = comb.to(kout.dtype).float()
@@ -117,15 +136,26 @@ def _device_of(x: torch.Tensor) -> torch.device:
 
 
 def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0):
-    """Checks shapes, allocates outputs and launches the conv kernel."""
+    """Checks shapes, allocates outputs and launches the conv kernel, adding
+    each launch to the ``launches`` of the mode's wrapper."""
     x0 = streams[0]
     dev = _device_of(x0)
     dt = weight.dtype
     if dt not in _DTYPES:
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     c_out, c = weight.shape[:2]
+    if c_out == SPLIT_C_OUT:
+        wres_halves = (None, None) if wres is None else wres.chunk(2)
+        halves = [
+            _launch_conv(mode, streams, w_half, r_half, affines, x_channels)
+            for w_half, r_half in zip(weight.chunk(2), wres_halves)
+        ]
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*halves))
     if c_out not in KERNEL_C_OUT:
-        raise ValueError(f"C_out={c_out}: the conv kernel is built for C_out in {KERNEL_C_OUT}")
+        raise ValueError(
+            f"C_out={c_out}: the conv kernel is built for C_out in {KERNEL_C_OUT} "
+            f"(and {SPLIT_C_OUT} as two launches)"
+        )
     bsz, _, d, h, w = x0.shape
     vol = (d, h, w)
     c_half = c // 2 if mode in ("cat2", "combine") else 0
@@ -162,6 +192,7 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
         bsz, c, c_half, x_channels, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"conv3x3x3 kernel ({mode})")
+    _MODE_WRAPPER[mode].launches += 1
     if wres is None:
         return out, s, ss
     return out, s, ss, res, rs, rss
@@ -175,9 +206,7 @@ def conv3x3x3_of(x, weight, a=None, b=None, wres=None):
     if x.device.type == "cpu":
         return conv3x3x3_of_plain(x, weight, a, b, wres)
     mode = "plain" if a is None else "affine_leaky"
-    outs = _launch_conv(mode, (x,), weight, wres, () if a is None else (a, b))
-    conv3x3x3_of.launches += 1
-    return outs
+    return _launch_conv(mode, (x,), weight, wres, () if a is None else (a, b))
 
 
 def conv3x3x3_of_cat2(xa, xb, weight, wres):
@@ -185,9 +214,7 @@ def conv3x3x3_of_cat2(xa, xb, weight, wres):
     W)); returns ``(out, s, ss, res, rs, rss)``."""
     if xa.device.type == "cpu":
         return conv3x3x3_of_cat2_plain(xa, xb, weight, wres)
-    outs = _launch_conv("cat2", (xa, xb), weight, wres, ())
-    conv3x3x3_of_cat2.launches += 1
-    return outs
+    return _launch_conv("cat2", (xa, xb), weight, wres, ())
 
 
 def conv3x3x3_of_combine(up, y, x1, ay, by, ax, bx, weight, wres):
@@ -197,11 +224,9 @@ def conv3x3x3_of_combine(up, y, x1, ay, by, ax, bx, weight, wres):
     ``(out, s, ss, res, rs, rss)``."""
     if up.device.type == "cpu":
         return conv3x3x3_of_combine_plain(up, y, x1, ay, by, ax, bx, weight, wres)
-    outs = _launch_conv(
+    return _launch_conv(
         "combine", (up, y, x1), weight, wres, (ay, by, ax, bx), x_channels=x1.shape[1]
     )
-    conv3x3x3_of_combine.launches += 1
-    return outs
 
 
 def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
@@ -238,7 +263,43 @@ def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
     return out
 
 
-KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of)
+def conv3x3x3_wgrad_of(x, g):
+    """K6. x (B, C, D, H, W) and the cotangent g (B, CO, D, H, W) in the
+    compute dtype. Returns dW (CO, C, 3, 3, 3) fp32 of the same-pad,
+    no-prologue conv ``conv3x3x3_of(x, W)``; the sums are taken in a fixed
+    order (per-block partials, then one reduction pass)."""
+    if x.device.type == "cpu":
+        return conv3x3x3_wgrad_of_plain(x, g)
+    dev = _device_of(x)
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
+    bsz, c, d, h, w = x.shape
+    c_out = g.shape[1]
+    if c_out not in WGRAD_C_OUT:
+        raise ValueError(f"C_out={c_out}: the wgrad kernel is built for C_out in {WGRAD_C_OUT}")
+    _check(x, "x", (bsz, c, d, h, w), dt, dev)
+    _check(g, "g", (bsz, c_out, d, h, w), dt, dev)
+    chunks = -(-c // WGRAD_CC)
+    tiles = bsz * d * -(-h // WGRAD_TILE) * -(-w // WGRAD_TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = max(1, min(tiles, -(-WGRAD_BLOCKS_PER_SM * sms // chunks)))
+    partial = torch.empty((groups, c_out, c, 27), dtype=torch.float32, device=dev)
+    dw = torch.empty((c_out, c, 3, 3, 3), dtype=torch.float32, device=dev)
+    err = _build.lib().medseg_wgrad(
+        dev.index, int(dt == torch.bfloat16), c_out, _ptr(x), _ptr(g), _ptr(partial), _ptr(dw),
+        bsz, c, d, h, w, groups, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "wgrad kernel")
+    conv3x3x3_wgrad_of.launches += 1
+    return dw
+
+
+_MODE_WRAPPER = {
+    "plain": conv3x3x3_of, "affine_leaky": conv3x3x3_of, "cat2": conv3x3x3_of_cat2,
+    "combine": conv3x3x3_of_combine,
+}
+KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of, conv3x3x3_wgrad_of)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -2,15 +2,20 @@
 
 ``kernel_cases`` builds seeded inputs for every kernel of the serving path
 at the shapes the fused forward gives it (``full``^3 and ``full/2``^3
-volumes, ``fs`` = feature_size); ``run_case`` calls the wrapper (which
-launches the kernel on a CUDA device) and the plain version, and returns the
-largest errors and both times. ``chip_smoke.py`` runs it at the main path's
-shapes, ``tests/test_torch_kernels_cuda.py`` at small ones.
+volumes, ``fs`` = feature_size); ``training_cases`` does the same for the
+kernels the training step adds (K6, K1's data gradient, K7 and K8).
+``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
+and the plain version, and returns the largest errors, the least time the
+card could take for the work (``bound_ms``) and, when timed, the kernel's,
+the plain version's and the library call's times. ``chip_smoke.py`` runs it
+at the main path's shapes, ``tests/test_torch_kernels_cuda.py`` at small
+ones.
 
 Tolerances (errors are max |kernel - plain| over max(1, max |plain|)):
 outputs 1e-4 in fp32 (both sides sum in fp32, only the order differs) and
-2e-2 in bf16 (one bf16 rounding of the output); statistics 1e-3 (the
-kernel's atomics add in a varying order).
+2e-2 in bf16 (one bf16 rounding of the output; the fp32 filter gradient
+sums identically rounded operands); sums of shape (B,) or (B, C) 1e-3 (the
+kernels' atomics add in a varying order).
 """
 
 from __future__ import annotations
@@ -19,11 +24,16 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
-from medseg_torch.kernels import conv_of
+from medseg_torch.kernels import conv_of, loss_of
 
 OUT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STATS_TOL = 1e-3
+# NVIDIA H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside
+# the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass
@@ -33,6 +43,24 @@ class Case:
     plain: Callable
     args: tuple
     kwargs: dict = dataclasses.field(default_factory=dict)  # keyword inputs of both
+    flops: float = 0.0  # operations the function needs on these inputs
+    fp32_math: bool = False  # its operations run in fp32 whatever the operands' dtype
+    # one PyTorch call computing the same function (contiguous, and
+    # channels_last_3d where that layout applies), timed as a yardstick only
+    library: Callable | None = None
+    library_cl: Callable | None = None
+
+
+def _conv_flops(x: torch.Tensor, c_out: int, taps: int = 27) -> float:
+    return 2.0 * taps * x.shape[1] * c_out * x[0, 0].numel() * x.shape[0]
+
+
+def _conv_library(x: torch.Tensor, weight: torch.Tensor):
+    """``F.conv3d`` of x with the weight (cuDNN), contiguous and in
+    channels_last_3d; it leaves out any prologue, tap and statistics."""
+    cl = torch.channels_last_3d
+    x_cl, w_cl = x.to(memory_format=cl), weight.to(memory_format=cl)
+    return (lambda: F.conv3d(x, weight, padding=1)), (lambda: F.conv3d(x_cl, w_cl, padding=1))
 
 
 def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) -> list[Case]:
@@ -54,37 +82,119 @@ def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) 
         return randn(batch, c, s, s, s)
 
     c = conv_of
+
+    def conv_case(name, x, w, *affine, wres=None):
+        lib, lib_cl = _conv_library(x, w)
+        flops = _conv_flops(x, w.shape[0]) + (0 if wres is None else _conv_flops(x, w.shape[0], 1))
+        kwargs = {} if wres is None else {"wres": wres}
+        return Case(name, c.conv3x3x3_of, c.conv3x3x3_of_plain, (x, w, *affine), kwargs,
+                    flops=flops, library=lib, library_cl=lib_cl)
+
     cases = [
-        Case(f"enc1.conv1 1->{fs} @{batch}x{full}^3", c.conv3x3x3_of, c.conv3x3x3_of_plain,
-             (vol(1, full), weight(fs, 1))),
-        Case(f"enc1.conv1+conv3 4->{fs} @{batch}x{full}^3", c.conv3x3x3_of,
-             c.conv3x3x3_of_plain, (vol(4, full), weight(fs, 4)), {"wres": weight(fs, 4, 1)}),
-        Case(f"enc1.conv2 {fs}->{fs} affine @{batch}x{full}^3", c.conv3x3x3_of,
-             c.conv3x3x3_of_plain, (vol(fs, full), weight(fs, fs), *affine(fs))),
-        Case(f"{fs}->{fs} affine+conv3 @{batch}x{full}^3", c.conv3x3x3_of,
-             c.conv3x3x3_of_plain, (vol(fs, full), weight(fs, fs), *affine(fs)),
-             {"wres": weight(fs, fs, 1)}),
-        Case(f"dec3.conv2 {2 * fs}->{2 * fs} affine @{batch}x{half}^3", c.conv3x3x3_of,
-             c.conv3x3x3_of_plain, (vol(2 * fs, half), weight(2 * fs, 2 * fs), *affine(2 * fs))),
-        Case(f"dec3.conv1 ({2 * fs}+{2 * fs})->{2 * fs} @{batch}x{half}^3", c.conv3x3x3_of_cat2,
-             c.conv3x3x3_of_cat2_plain,
-             (vol(2 * fs, half), vol(2 * fs, half), weight(2 * fs, 4 * fs), weight(2 * fs, 4 * fs, 1))),
+        conv_case(f"enc1.conv1 1->{fs} @{batch}x{full}^3", vol(1, full), weight(fs, 1)),
+        conv_case(f"enc1.conv1+conv3 4->{fs} @{batch}x{full}^3", vol(4, full), weight(fs, 4),
+                  wres=weight(fs, 4, 1)),
+        conv_case(f"enc1.conv2 {fs}->{fs} affine @{batch}x{full}^3", vol(fs, full),
+                  weight(fs, fs), *affine(fs)),
+        conv_case(f"{fs}->{fs} affine+conv3 @{batch}x{full}^3", vol(fs, full), weight(fs, fs),
+                  *affine(fs), wres=weight(fs, fs, 1)),
+        conv_case(f"dec3.conv2 {2 * fs}->{2 * fs} affine @{batch}x{half}^3", vol(2 * fs, half),
+                  weight(2 * fs, 2 * fs), *affine(2 * fs)),
     ]
+    xa, xb = vol(2 * fs, half), vol(2 * fs, half)
+    w_cat, x_cat = weight(2 * fs, 4 * fs), torch.cat([xa, xb], dim=1)
+    lib, lib_cl = _conv_library(x_cat, w_cat)  # on the concat, made outside the timing
+    cases.append(Case(
+        f"dec3.conv1 ({2 * fs}+{2 * fs})->{2 * fs} @{batch}x{half}^3", c.conv3x3x3_of_cat2,
+        c.conv3x3x3_of_cat2_plain, (xa, xb, w_cat, weight(2 * fs, 4 * fs, 1)),
+        flops=_conv_flops(x_cat, 2 * fs, 28), library=lib, library_cl=lib_cl,
+    ))
     for xc in (1, fs):
+        up = vol(fs, full)
         cases.append(Case(
             f"dec2.conv1 ({fs}+{fs})->{fs} x{xc}ch @{batch}x{full}^3", c.conv3x3x3_of_combine,
             c.conv3x3x3_of_combine_plain,
-            (vol(fs, full), vol(fs, full), vol(xc, full), *affine(fs), *affine(fs),
+            (up, vol(fs, full), vol(xc, full), *affine(fs), *affine(fs),
              weight(fs, 2 * fs), weight(fs, 2 * fs, 1)),
+            flops=2.0 * 28 * 2 * fs * fs * up[0, 0].numel() * batch,
         ))
     k_pad = 16
     scale = (torch.rand((batch, 1, full, full, full), generator=g) * 0.5).to(device)
+    z = vol(fs, full)
     cases.append(Case(
         f"out head {fs}->{k_pad} scaled @{batch}x{full}^3", c.outhead_of, c.outhead_of_plain,
-        (vol(fs, full), vol(fs, full), *affine(fs), *affine(fs), randn(k_pad, fs, scale=fs**-0.5),
+        (z, vol(fs, full), *affine(fs), *affine(fs), randn(k_pad, fs, scale=fs**-0.5),
          randn(k_pad, scale=0.1, dt=torch.float32), scale),
+        flops=2.0 * fs * k_pad * z[0, 0].numel() * batch,
     ))
     return cases
+
+
+def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96,
+                   n_classes: int = 14) -> list[Case]:
+    """The kernels the UNETR-B/16 training step adds, at its shapes: K6 for
+    each routed conv's (C, CO), K1's data gradient at 16->32 (dec2.conv1) and
+    32->64 (dec3.conv1, two 32-wide launches), K7 and K8 on (batch,
+    n_classes, full^3) logits."""
+    g = torch.Generator().manual_seed(1)
+    half = full // 2
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dt)
+
+    c = conv_of
+    cases = []
+    for layer, c_in, c_out, s in (
+        ("enc1.conv1", 1, 16, full), ("enc1.conv2", 16, 16, full), ("dec2.conv1", 32, 16, full),
+        ("dec2.conv2", 16, 16, full), ("dec3.conv1", 64, 32, half), ("dec3.conv2", 32, 32, half),
+    ):
+        x, cot = randn(batch, c_in, s, s, s), randn(batch, c_out, s, s, s)
+        w_shape = (c_out, c_in, 3, 3, 3)
+        cases.append(Case(
+            f"wgrad {layer} {c_in}->{c_out} @{batch}x{s}^3", c.conv3x3x3_wgrad_of,
+            c.conv3x3x3_wgrad_of_plain, (x, cot), flops=_conv_flops(x, c_out),
+            library=lambda x=x, cot=cot, w_shape=w_shape: torch.nn.grad.conv3d_weight(
+                x, w_shape, cot, padding=1),
+        ))
+    for layer, c_in, c_out, s in (("dec2.conv1", 32, 16, full), ("dec3.conv1", 64, 32, half)):
+        cot = randn(batch, c_out, s, s, s)
+        w_t = randn(c_out, c_in, 3, 3, 3, scale=(c_out * 27) ** -0.5).flip(2, 3, 4)
+        w_t = w_t.transpose(0, 1).contiguous()  # the data gradient's weight
+        lib, lib_cl = _conv_library(cot, w_t)
+        cases.append(Case(
+            f"bwd-data {layer} {c_out}->{c_in} @{batch}x{s}^3", c.conv3x3x3_of,
+            c.conv3x3x3_of_plain, (cot, w_t), flops=_conv_flops(cot, c_in),
+            library=lib, library_cl=lib_cl,
+        ))
+    logits = randn(batch, n_classes, full, full, full, scale=2.0)
+    labels = torch.randint(0, n_classes, (batch, full, full, full), generator=g,
+                           dtype=torch.int32).to(device)
+    n = batch * full**3 * n_classes
+    cases.append(Case(
+        f"dice_ce_sums {n_classes} classes @{batch}x{full}^3", loss_of.dice_ce_sums,
+        loss_of.dice_ce_sums_plain, (logits, labels), flops=6.0 * n, fp32_math=True,
+    ))
+    coefs = (randn(batch, n_classes, dt=torch.float32), randn(batch, n_classes, dt=torch.float32),
+             (torch.rand((batch,), generator=g) + 0.5).to(device))
+    cases.append(Case(
+        f"dice_ce_bwd {n_classes} classes @{batch}x{full}^3", loss_of.dice_ce_bwd,
+        loss_of.dice_ce_bwd_plain, (logits, labels, *coefs), flops=13.0 * n, fp32_math=True,
+    ))
+    return cases
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def bound_ms(case: Case, dtype: torch.dtype, outputs) -> tuple[float, str]:
+    """The least time the card could take for the case's work: the larger of
+    its operations over the peak rate of their type and its bytes (each
+    input read once, each output written once) over the HBM bandwidth."""
+    rate = PEAK_FLOPS[torch.float32 if case.fp32_math else dtype]
+    flop_s = case.flops / rate
+    byte_s = (_nbytes(case.args) + _nbytes(case.kwargs.values()) + _nbytes(outputs)) / HBM_BYTES_PER_S
+    return 1e3 * max(flop_s, byte_s), "operations" if flop_s >= byte_s else "bytes"
 
 
 def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -108,7 +218,9 @@ def time_ms(fn: Callable, reps: int = 10) -> float:
 
 def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
     """Kernel vs plain on the case's inputs: relative errors (outputs and
-    statistics separately), the largest absolute output error, pass/fail, and with ``timed`` both mean times in ms."""
+    sums separately), the largest absolute output error, pass/fail, the
+    bound, and with ``timed`` the mean times in ms of the kernel, the plain
+    version and the library call (None where there is none)."""
     got = case.kernel(*case.args, **case.kwargs)
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
@@ -116,21 +228,26 @@ def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
     ref = ref if isinstance(ref, tuple) else (ref,)
     out_err = stats_err = max_abs_err = 0.0
     for g, r in zip(got, ref):
-        if g.ndim == 2:  # (B, C) sums
+        if g.ndim <= 2:  # (B,) or (B, C) sums
             stats_err = max(stats_err, _rel_err(g, r))
         else:
             if not torch.isfinite(g).all():
                 raise RuntimeError(f"{case.name}: non-finite kernel output")
             out_err = max(out_err, _rel_err(g, r))
             max_abs_err = max(max_abs_err, (g.float() - r.float()).abs().max().item())
+    bound, bound_by = bound_ms(case, dtype, ref)
     result = {
         "name": case.name,
         "out_err": out_err,
         "stats_err": stats_err,
         "max_abs_err": max_abs_err,
         "ok": out_err <= OUT_TOL[dtype] and stats_err <= STATS_TOL,
+        "bound_ms": bound,
+        "bound_by": bound_by,
     }
     if timed:
         result["ms"] = time_ms(lambda: case.kernel(*case.args, **case.kwargs))
         result["plain_ms"] = time_ms(lambda: case.plain(*case.args, **case.kwargs))
+        result["library_ms"] = None if case.library is None else time_ms(case.library)
+        result["library_cl_ms"] = None if case.library_cl is None else time_ms(case.library_cl)
     return result

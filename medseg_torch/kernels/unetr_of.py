@@ -6,7 +6,7 @@ Functionally ``UNETR.forward(x, return_encoder_features=False)``, with the
 48^3 decoder and the two full-resolution stages run as a chain of
 ``conv_of`` kernels and two-phase instance norm:
 
-    ViT + enc2-4 + dec5-4 (plain torch: SDPA, cuDNN)
+    ViT + enc2-4 + dec5-4 (the modules in their compute dtype: SDPA, cuDNN)
     dec3:  transpose conv -> K5 cat2 [up ; enc2] (+conv3 tap) -> K1 (affine)
     enc1:  K1 conv1 (C_in=1: conv3 folds into an affine of x; C_in>1: conv3
            from conv1's residual tap) -> K1 conv2 (affine prologue)
@@ -135,7 +135,7 @@ def fast_apply_v3(
 
     Returns:
       (B, K_pad, D, H, W) logits in the compute dtype ``model.dtype`` (fp32
-      when None; the low-resolution stages run under autocast to it), K_pad
+      when None; the low-resolution stages run in it too), K_pad
       = ``class_pad(out_channels)``; pad classes carry bias (times the
       weight) and are cropped by the caller.
     """
@@ -155,8 +155,7 @@ def fast_apply_v3(
     def cw(conv):
         return weights[f"{conv}.conv.weight"]
 
-    with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
-        enc2, dec2 = _lowres_stages(model, x)
+    enc2, dec2 = _lowres_stages(model, x)  # in the module's compute dtype
     dec1 = up_block_of(model, "decoder3", dec2, enc2, weights)
 
     # ---- full-resolution chain ----

@@ -7,6 +7,14 @@ Submodule names follow MONAI's, so ``state_dict`` keys are those of the
 reference checkpoints (``encoder1.layer.conv1.conv.weight``, ...) that
 ``medseg.engine.checkpoint.convert_torch_state_dict`` parses. Every conv has
 a bias, as the flax blocks do, so the parameter sets are identical.
+
+Each block takes a compute ``dtype`` as the flax blocks do: parameters stay
+fp32, each layer casts its operands (and its bias) to ``dtype`` (None: the
+promoted type of input and parameters), norms compute fp32 statistics and
+return their input's dtype. With gradients enabled, a 3x3x3 conv whose shape
+``kernels.conv3d.train_route`` accepts runs through ``Conv3x3x3Fn`` (K1
+forward and data gradient, K6 filter gradient), its output rounded to the
+compute dtype before the bias, as the JAX routed conv does.
 """
 
 from __future__ import annotations
@@ -21,6 +29,16 @@ NORM_EPS = 1e-5  # torch InstanceNorm3d default eps
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+# after the names above, which kernels.conv_of imports from this module
+from medseg_torch.kernels import conv3d  # noqa: E402
+
+
+def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tensor) -> torch.dtype:
+    """A layer's compute dtype: ``dtype``, else the promoted type of its
+    input and parameter (flax's rule for ``dtype=None``)."""
+    return dtype or torch.promote_types(x.dtype, param.dtype)
 
 
 class InstanceNorm(nn.Module):
@@ -48,23 +66,35 @@ class Conv3d(nn.Module):
     """Stride-1 3D conv with torch 'same' padding for odd kernels; the conv
     sits in a ``conv`` child as in MONAI's ``Convolution``."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3) -> None:
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
         self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, padding=(kernel_size - 1) // 2)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        dt = compute_dtype(self.dtype, x, self.conv.weight)
+        x = x.to(dt)
+        weight, bias = self.conv.weight.to(dt), self.conv.bias.to(dt)
+        c_out, _, k = weight.shape[:3]
+        if k == 3 and torch.is_grad_enabled() and conv3d.train_route(x.shape, c_out):
+            return conv3d.conv3x3x3(x, weight) + bias.view(1, -1, 1, 1, 1)
+        return F.conv3d(x, weight, bias, padding=self.conv.padding)
 
 
 class ConvTranspose3d(nn.Module):
     """ConvTranspose(k=2, s=2) used for all UNETR upsampling (doubles D/H/W)."""
 
-    def __init__(self, in_ch: int, out_ch: int) -> None:
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype | None = None) -> None:
         super().__init__()
         self.conv = nn.ConvTranspose3d(in_ch, out_ch, 2, 2)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        dt = compute_dtype(self.dtype, x, self.conv.weight)
+        return F.conv_transpose3d(
+            x.to(dt), self.conv.weight.to(dt), self.conv.bias.to(dt), stride=2
+        )
 
 
 class UnetResBlock(nn.Module):
@@ -72,15 +102,15 @@ class UnetResBlock(nn.Module):
     by a 1x1x1 conv + norm when the channel count changes. Kernel 3, stride
     1: the only form UNETR uses."""
 
-    def __init__(self, in_ch: int, out_ch: int) -> None:
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.conv1 = Conv3d(in_ch, out_ch)
-        self.conv2 = Conv3d(out_ch, out_ch)
+        self.conv1 = Conv3d(in_ch, out_ch, dtype=dtype)
+        self.conv2 = Conv3d(out_ch, out_ch, dtype=dtype)
         self.norm1 = InstanceNorm(out_ch)
         self.norm2 = InstanceNorm(out_ch)
         self.downsample = in_ch != out_ch
         if self.downsample:
-            self.conv3 = Conv3d(in_ch, out_ch, 1)
+            self.conv3 = Conv3d(in_ch, out_ch, 1, dtype=dtype)
             self.norm3 = InstanceNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,10 +123,10 @@ class UnetResBlock(nn.Module):
 class UnetBasicBlock(nn.Module):
     """Non-residual variant: (conv-norm-lrelu) x2 (res_block=False path)."""
 
-    def __init__(self, in_ch: int, out_ch: int) -> None:
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.conv1 = Conv3d(in_ch, out_ch)
-        self.conv2 = Conv3d(out_ch, out_ch)
+        self.conv1 = Conv3d(in_ch, out_ch, dtype=dtype)
+        self.conv2 = Conv3d(out_ch, out_ch, dtype=dtype)
         self.norm1 = InstanceNorm(out_ch)
         self.norm2 = InstanceNorm(out_ch)
 
@@ -105,16 +135,17 @@ class UnetBasicBlock(nn.Module):
         return leaky_relu(self.norm2(self.conv2(y)))
 
 
-def _conv_block(in_ch: int, out_ch: int, res_block: bool) -> nn.Module:
-    return (UnetResBlock if res_block else UnetBasicBlock)(in_ch, out_ch)
+def _conv_block(in_ch: int, out_ch: int, res_block: bool, dtype: torch.dtype | None) -> nn.Module:
+    return (UnetResBlock if res_block else UnetBasicBlock)(in_ch, out_ch, dtype)
 
 
 class UnetrBasicBlock(nn.Module):
     """Reference encoder1."""
 
-    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True) -> None:
+    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.layer = _conv_block(in_ch, out_ch, res_block)
+        self.layer = _conv_block(in_ch, out_ch, res_block, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(x)
@@ -125,10 +156,13 @@ class UnetrPrUpBlock(nn.Module):
     ConvTranspose(k=2, s=2) stages, the reference's ``conv_block=False`` form
     (transpose convs only)."""
 
-    def __init__(self, in_ch: int, out_ch: int, num_layer: int) -> None:
+    def __init__(self, in_ch: int, out_ch: int, num_layer: int,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.transp_conv_init = ConvTranspose3d(in_ch, out_ch)
-        self.blocks = nn.ModuleList(ConvTranspose3d(out_ch, out_ch) for _ in range(num_layer))
+        self.transp_conv_init = ConvTranspose3d(in_ch, out_ch, dtype)
+        self.blocks = nn.ModuleList(
+            ConvTranspose3d(out_ch, out_ch, dtype) for _ in range(num_layer)
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.transp_conv_init(x)
@@ -140,10 +174,11 @@ class UnetrPrUpBlock(nn.Module):
 class UnetrUpBlock(nn.Module):
     """Decoder stage: upsample, concat ``[up ; skip]``, residual conv block."""
 
-    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True) -> None:
+    def __init__(self, in_ch: int, out_ch: int, res_block: bool = True,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.transp_conv = ConvTranspose3d(in_ch, out_ch)
-        self.conv_block = _conv_block(2 * out_ch, out_ch, res_block)
+        self.transp_conv = ConvTranspose3d(in_ch, out_ch, dtype)
+        self.conv_block = _conv_block(2 * out_ch, out_ch, res_block, dtype)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=1))
@@ -152,9 +187,9 @@ class UnetrUpBlock(nn.Module):
 class UnetOutBlock(nn.Module):
     """1x1x1 conv to class logits."""
 
-    def __init__(self, in_ch: int, n_classes: int) -> None:
+    def __init__(self, in_ch: int, n_classes: int, dtype: torch.dtype | None = None) -> None:
         super().__init__()
-        self.conv = Conv3d(in_ch, n_classes, 1)
+        self.conv = Conv3d(in_ch, n_classes, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

@@ -6,15 +6,21 @@ encoder2/3/4 upsample the token grids by 8x/4x/2x; decoder5..decoder2
 upsample and merge skips; 1x1x1 out head. ``proj_feat`` is a reshape plus a
 permute to NCDHW.
 
-``dtype`` is the compute dtype of the fused serving forward
-(``medseg_torch.kernels.unetr_of.fast_apply_v3``): the kernels' operand type
-there. The module's own ``forward`` computes in the parameters' dtype.
+``dtype`` is the compute dtype of the whole module, as in the flax module:
+parameters stay fp32, every layer computes in ``dtype`` (norm statistics in
+fp32) and the logits come out in it; it is also the kernels' operand type in
+the fused serving forward (``medseg_torch.kernels.unetr_of.fast_apply_v3``).
+Setting ``model.dtype`` sets it on every layer. ``remat`` recomputes stages
+in the backward pass (``torch.utils.checkpoint``, non-reentrant), with the
+JAX values: True / "all" every stage; "lowres" the ViT blocks and the
+<= 24^3 stages, keeping the full-resolution activations; False none.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from medseg_torch.models.blocks import (
     UnetOutBlock,
@@ -43,6 +49,7 @@ class UNETR(nn.Module):
         conv_block: bool = False,
         dropout_rate: float = 0.0,
         dtype: torch.dtype | None = None,
+        remat: bool | str = False,
     ) -> None:
         super().__init__()
         if not 0 <= dropout_rate <= 1:
@@ -57,6 +64,8 @@ class UNETR(nn.Module):
                 "conv_block=True (conv blocks between the encoder upsamplings) is not "
                 "ported; every reference run uses False"
             )
+        if remat not in (True, False, "all", "lowres"):
+            raise ValueError(f"remat {remat!r} is not one of True, False, 'all', 'lowres'")
         if norm_name != "instance":
             # the fused serving kernels compute instance statistics; other
             # norms are rejected loudly rather than silently approximated
@@ -72,11 +81,12 @@ class UNETR(nn.Module):
         self.num_layers = num_layers
         self.patch_size = patch_size
         self.res_block = res_block
-        self.dtype = dtype
+        self.remat_all = remat in (True, "all")
+        self.remat_low = self.remat_all or remat == "lowres"
         self.feat_size = tuple(s // patch_size for s in self.img_size)
         self.vit = ViT(
             in_channels, self.img_size, patch_size, hidden_size, mlp_dim, num_layers,
-            num_heads, pos_embed, dropout_rate,
+            num_heads, pos_embed, dropout_rate, remat=bool(remat),
         )
         fs = feature_size
         self.encoder1 = UnetrBasicBlock(in_channels, fs, res_block=res_block)
@@ -88,6 +98,18 @@ class UNETR(nn.Module):
         self.decoder3 = UnetrUpBlock(fs * 4, fs * 2, res_block=res_block)
         self.decoder2 = UnetrUpBlock(fs * 2, fs, res_block=res_block)
         self.out = UnetOutBlock(fs, out_channels)
+        self.dtype = dtype  # sets every layer's compute dtype
+
+    @property
+    def dtype(self) -> torch.dtype | None:
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, value: torch.dtype | None) -> None:
+        self._dtype = value
+        for m in self.modules():
+            if m is not self and "dtype" in vars(m):
+                m.dtype = value
 
     def proj_feat(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, N, hidden) -> (B, hidden, fd, fh, fw)."""
@@ -103,16 +125,22 @@ class UNETR(nn.Module):
         """x_in: (B, C, D, H, W). Returns ``(enc4, logits)`` like the
         reference's local variant, or logits only with
         ``return_encoder_features=False``."""
+        def stage(module, remat, *args):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(module, *args, use_reentrant=False)
+            return module(*args)
+
+        low, full = self.remat_low, self.remat_all
         x, hidden_states = self.vit(x_in)
         q = self.num_layers // 4
-        enc1 = self.encoder1(x_in)
-        enc2 = self.encoder2(self.proj_feat(hidden_states[1 * q]))
-        enc3 = self.encoder3(self.proj_feat(hidden_states[2 * q]))
-        enc4 = self.encoder4(self.proj_feat(hidden_states[3 * q]))
-        dec3 = self.decoder5(self.proj_feat(x), enc4)
-        dec2 = self.decoder4(dec3, enc3)
-        dec1 = self.decoder3(dec2, enc2)
-        outf = self.decoder2(dec1, enc1)
+        enc1 = stage(self.encoder1, full, x_in)
+        enc2 = stage(self.encoder2, low, self.proj_feat(hidden_states[1 * q]))
+        enc3 = stage(self.encoder3, low, self.proj_feat(hidden_states[2 * q]))
+        enc4 = stage(self.encoder4, low, self.proj_feat(hidden_states[3 * q]))
+        dec3 = stage(self.decoder5, low, self.proj_feat(x), enc4)
+        dec2 = stage(self.decoder4, low, dec3, enc3)
+        dec1 = stage(self.decoder3, full, dec2, enc2)
+        outf = stage(self.decoder2, full, dec1, enc1)
         logits = self.out(outf)
         if return_encoder_features:
             return enc4, logits
@@ -138,6 +166,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def unetr_b16(
     in_channels: int, out_channels: int, crop_size: int, dtype: torch.dtype | None = None,
+    remat: bool | str = False,
 ) -> UNETR:
     """The one configuration every reference run uses: ViT-B, feature_size 16."""
     return UNETR(
@@ -151,4 +180,5 @@ def unetr_b16(
         res_block=True,
         dropout_rate=0.0,
         dtype=dtype,
+        remat=remat,
     )

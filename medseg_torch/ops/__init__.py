@@ -1,2 +1,2 @@
-"""Device ops of the PyTorch port: sliding-window inference, post-transforms
-and metrics."""
+"""Device ops of the PyTorch port: sliding-window inference, post-transforms,
+metrics and losses."""

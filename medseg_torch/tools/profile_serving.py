@@ -41,6 +41,9 @@ _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3
               "3": "K2 conv3x3x3_of_combine"}
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
+    ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),
+    ("K7 dice_ce_sums", re.compile(r"dice_ce_sums_kernel")),
+    ("K8 dice_ce_bwd", re.compile(r"dice_ce_bwd_kernel")),
     ("SDPA attention", re.compile(r"fmha|flash|attention", re.I)),
     ("elementwise", re.compile(r"elementwise_kernel")),
     ("reduction", re.compile(r"reduce_kernel")),

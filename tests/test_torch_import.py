@@ -1,8 +1,10 @@
-"""The PyTorch port imports no JAX, flax or triton.
+"""The PyTorch port imports no JAX, flax, triton or JAX package module.
 
 The port runs where JAX is not installed, and triton is imported only inside
-a function that launches a kernel. ``tests/conftest.py`` has already imported jax into
-this process, so the check runs in a fresh interpreter.
+a function that launches a kernel. It keeps its own copy of whatever it
+needs from ``medseg``, even of modules there that do not import JAX.
+``tests/conftest.py`` has already imported jax into this process, so the
+check runs in a fresh interpreter.
 """
 
 import os
@@ -19,6 +21,7 @@ for name in names:
     importlib.import_module(name)
 print(",".join(names))
 print(",".join(sorted(m for m in ("jax", "flax", "triton") if m in sys.modules)))
+print(",".join(sorted(m for m in sys.modules if m == "medseg" or m.startswith("medseg."))))
 """
 
 
@@ -27,16 +30,21 @@ def test_port_imports_no_jax_flax_or_triton():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    modules, heavy = proc.stdout.split("\n")[:2]
+    modules, heavy, reference = proc.stdout.split("\n")[:3]
     for name in (
         "medseg_torch.models.blocks", "medseg_torch.models.vit", "medseg_torch.models.unetr",
         "medseg_torch.engine.checkpoint", "medseg_torch.engine.evaluate",
+        "medseg_torch.engine.state", "medseg_torch.engine.train",
         "medseg_torch.kernels._build", "medseg_torch.kernels.conv_of",
-        "medseg_torch.kernels.unetr_of", "medseg_torch.ops.sliding_window",
-        "medseg_torch.ops.post", "medseg_torch.ops.metrics",
+        "medseg_torch.kernels.conv3d", "medseg_torch.kernels.loss_of",
+        "medseg_torch.kernels.kernel_check", "medseg_torch.kernels.unetr_of",
+        "medseg_torch.ops.sliding_window", "medseg_torch.ops.post", "medseg_torch.ops.metrics",
+        "medseg_torch.ops.losses", "medseg_torch.tools.profile_serving",
+        "medseg_torch.tools.profile_train",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"
+    assert reference == "", f"imported from the JAX package: {reference}"
 
 
 def test_import_builds_nothing():

@@ -8,14 +8,14 @@ there with:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
 Small shapes (2 x 16^3 and 8^3 volumes); ``chip_smoke.py`` repeats the
-comparisons at the serving path's full shapes. Tolerances are those of
+comparisons at the serving path's and the training step's full shapes. Tolerances are those of
 ``medseg_torch.kernels.kernel_check``.
 """
 
 import pytest
 import torch
 
-from medseg_torch.kernels import conv_of, kernel_check
+from medseg_torch.kernels import conv_of, kernel_check, loss_of
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +40,73 @@ def test_kernels_match_plain(device, dtype):
     assert not bad, bad
 
 
+@DTYPES
+def test_training_kernels_match_plain(device, dtype):
+    cases = kernel_check.training_cases(device, dtype, batch=2, full=16)
+    results = [kernel_check.run_case(case, dtype) for case in cases]
+    bad = [r for r in results if not r["ok"]]
+    assert not bad, bad
+
+
+def test_training_kernels_count_their_launches(device):
+    cases = kernel_check.training_cases(device, torch.float32, batch=1, full=16)
+    conv_of.reset_launches()
+    loss_of.reset_launches()
+    for case in cases:
+        case.kernel(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS + loss_of.KERNELS}
+    # K1's data gradient: 16->32 one launch, 32->64 two 32-wide launches
+    assert counts == {
+        "conv3x3x3_of": 3, "conv3x3x3_of_cat2": 0, "conv3x3x3_of_combine": 0, "outhead_of": 0,
+        "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 1, "dice_ce_bwd": 1,
+    }
+
+
+def test_training_step_matches_the_step_without_kernels(device):
+    """The tiny UNETR's loss and gradients through the kernels (fp32, the
+    32^3 and 16^3 convs routed through K1/K6, the loss through K7/K8) against
+    the same model on the same card without them (cuDNN convs, the autograd
+    loss): only the kernels differ, in summation order."""
+    import copy
+
+    from medseg_torch.engine.train import make_loss_fn
+    from medseg_torch.kernels import conv3d
+    from medseg_torch.models.unetr import UNETR, init_weights
+    from medseg_torch.ops.losses import dice_ce_loss
+
+    g = torch.Generator().manual_seed(0)
+    model = init_weights(UNETR(in_channels=1, out_channels=3, img_size=(32, 32, 32),
+                               feature_size=16, hidden_size=24, mlp_dim=48, num_heads=4,
+                               num_layers=4, remat=True), g)
+    x = torch.randn((2, 1, 32, 32, 32), generator=g).to(device)
+    y = torch.randint(0, 3, (2, 32, 32, 32), generator=g, dtype=torch.int32).to(device)
+    route_min_hw = conv3d.OF_MIN_HW
+    grads, losses = [], []
+    try:
+        for routed in (True, False):
+            conv3d.OF_MIN_HW = 16 * 16 if routed else float("inf")
+            m = copy.deepcopy(model).to(device)
+            conv_of.reset_launches()
+            loss_of.reset_launches()
+            if routed:
+                loss = make_loss_fn("ct")(m, x, y)
+            else:
+                logits = m(x, return_encoder_features=False)
+                loss = dice_ce_loss(logits, y, softmax=True, to_onehot_y=True)
+            loss.backward()
+            launched = conv_of.conv3x3x3_wgrad_of.launches + loss_of.dice_ce_bwd.launches
+            assert (launched > 0) == routed
+            losses.append(loss.item())
+            grads.append({n: p.grad for n, p in m.named_parameters()})
+    finally:
+        conv3d.OF_MIN_HW = route_min_hw
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    num = sum((grads[0][n] - grads[1][n]).square().sum() for n in grads[1])
+    den = sum(grads[1][n].square().sum() for n in grads[1])
+    assert (num / den).sqrt().item() < 1e-4
+
+
 def test_each_wrapper_counts_its_launches(device):
     cases = kernel_check.kernel_cases(device, torch.float32, batch=1, full=16)
     conv_of.reset_launches()
@@ -49,6 +116,7 @@ def test_each_wrapper_counts_its_launches(device):
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
     assert counts == {
         "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 1, "conv3x3x3_of_combine": 2, "outhead_of": 1,
+        "conv3x3x3_wgrad_of": 0,
     }
 
 
@@ -61,6 +129,14 @@ def test_wrapper_raises_instead_of_falling_back(device):
         conv_of.conv3x3x3_of(x, torch.randn(8, 16, 3, 3, 3, device=device))
     with pytest.raises(ValueError, match="dtype"):
         conv_of.conv3x3x3_of(x.half(), w.half())
+    with pytest.raises(ValueError, match="C_out"):
+        conv_of.conv3x3x3_wgrad_of(x, torch.randn(1, 8, 8, 8, 8, device=device))
+    logits = torch.randn(1, 3, 8, 8, 8, device=device)
+    labels = torch.zeros(1, 8, 8, 8, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="int32"):
+        loss_of.dice_ce_sums(logits, labels.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        loss_of.dice_ce_sums(logits.transpose(2, 3), labels)
 
 
 @pytest.mark.parametrize("c_in", [1, 4])

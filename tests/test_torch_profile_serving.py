@@ -1,4 +1,5 @@
-"""The serving profiler's bookkeeping: kernel classes by name and busy time
+"""The profilers' bookkeeping (``profile_serving``, shared by
+``profile_train``): kernel classes by name and busy time
 as the union of kernel intervals (the profiling itself needs the card)."""
 
 import pytest
@@ -16,6 +17,13 @@ from medseg_torch.tools import profile_serving as ps
     ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, 3, true, 16>(medseg::ConvArgs)",
      "K2 conv3x3x3_of_combine"),
     ("void medseg::outhead_kernel<__nv_bfloat16>(...)", "K3 outhead_of"),
+    ("void medseg::(anonymous namespace)::wgrad_kernel<__nv_bfloat16, 16>"
+     "(medseg::(anonymous namespace)::WgradArgs)", "K6 conv3x3x3_wgrad_of"),
+    ("medseg::(anonymous namespace)::wgrad_reduce_kernel(float const*, float*, int, int)",
+     "K6 conv3x3x3_wgrad_of"),
+    ("void medseg::(anonymous namespace)::dice_ce_sums_kernel<__nv_bfloat16>(...)",
+     "K7 dice_ce_sums"),
+    ("void medseg::(anonymous namespace)::dice_ce_bwd_kernel<float>(...)", "K8 dice_ce_bwd"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
     ("void at::native::reduce_kernel<512, 1, ...>", "reduction"),
     ("pytorch_flash::flash_fwd_kernel<...>", "SDPA attention"),
