@@ -4,26 +4,36 @@
     python3 chip_smoke.py        # from the repository root, no arguments
 
 Builds the port's CUDA kernels from ``medseg_torch/kernels/csrc`` and drives
-its two paths with random weights from a seed: serving, whole-volume
+its paths with random weights from a seed: serving, whole-volume
 sliding-window inference of UNETR-B/16 (BASELINE config 4: a 512x512x160
-one-channel CT volume, 14 classes, 96^3 windows, overlap 0.5, Gaussian blend,
-sw_batch 4), and training, the supervised step of UNETR-B/16 (BASELINE
-config 5: batch 4 of 96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight
-decay 1e-5). Phases, each raising on failure:
+one-channel CT volume, 14 classes, 96^3 windows, overlap 0.5, Gaussian
+blend; its grid takes the z-row walk), the BraTS serving shape (BASELINE
+config 8: four MRI channels, 4 classes, 128^3 windows, a 240x240x155 volume,
+which takes the flat walk), the serving CLI end to end (NIfTI to NIfTI), and
+training, the supervised step of UNETR-B/16 (BASELINE config 5: batch 4 of
+96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight decay 1e-5). Phases,
+each raising on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; TF32 off
    for every fp32 reference;
 2. build: the kernel library, timed;
-3. every kernel against its plain PyTorch version at the path's shapes, fp32
-   and bf16, with errors and CUDA-event times;
+3. every serving kernel against its plain PyTorch version at the path's
+   shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators), then at
+   the BraTS window (128^3, four channels), with errors and CUDA-event times;
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
    one batch of four 96^3 windows;
-5. ``Validator.infer_volume`` on a small volume against the plain forward,
-   then on the config-4 volume (one warm run, one timed run whose kernel
-   launches are counted);
-6. the training step's kernels (K6, K1's data gradient, K7, K8) against
+5. ``Validator.infer_volume`` on small volumes against the plain fp32
+   walk through both routes (z-row with K4, flat with K3), then on the
+   config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
+   timed run each, whose kernel launches are counted: 50 K4 launches);
+6. config 8: a small four-channel volume against the plain fp32 forward,
+   then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched);
+7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
+   preprocessing on a synthetic two-volume CT Decathlon directory; masks
+   checked, end-to-end vol/s printed;
+8. the training step's kernels (K6, K1's data gradient, K7, K8) against
    their plain versions at its shapes, fp32 and bf16, timed;
-7. the training step: loss and gradients through the kernels (bf16, remat)
+9. the training step: loss and gradients through the kernels (bf16, remat)
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
    whose losses must be finite and fall and whose kernel launches are
@@ -37,8 +47,10 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +66,8 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
                              "dec2.conv1 (16+16)->16 x1ch @4x96^3"),
     "outhead_of": ("medseg_torch/kernels/csrc/outhead_of.cu", "medseg/kernels/conv_of.py:1423",
                    "out head 16->16 scaled @4x96^3"),
+    "outhead_row_of": ("medseg_torch/kernels/csrc/outhead_row_of.cu",
+                       "medseg/kernels/conv_of.py:1596", "out head row 16->16 acc bfloat16 @6x96^3"),
     "conv3x3x3_wgrad_of": ("medseg_torch/kernels/csrc/wgrad_of.cu",
                            "medseg/kernels/conv_of.py:914", "wgrad enc1.conv2 16->16 @4x96^3"),
     "dice_ce_sums": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:133",
@@ -70,8 +84,14 @@ TRAIN_LOSS_REL_BOUND = 1e-3
 TRAIN_GRAD_REL_L2_BOUND = 5e-2
 TRAIN_STEPS = 10
 TRAIN_BATCH, CROP, N_CLASSES = 4, 96, 14  # BASELINE config 5
-SERVING_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
+ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
+FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd")
+CONFIG4_K4_LAUNCHES = 50  # 10 d-starts x 5 groups of 2 h-rows (3 w-windows each)
+# each kernel's launches come from the path that is its home
+HOME_PATH = {"outhead_of": "brats", "conv3x3x3_wgrad_of": "train", "dice_ce_sums": "train",
+             "dice_ce_bwd": "train"}
+CLI_VOLUME = (200, 200, 120)  # CT voxels at 1.5 x 1.5 x 2 mm: ~300 x 300 x 240 after respacing
 
 
 def log(msg: str) -> None:
@@ -96,13 +116,13 @@ def phase_device() -> tuple[torch.device, str]:
     return torch.device("cuda", 0), card
 
 
-def phase_build() -> None:
+def phase_build(card: str) -> None:
     from medseg_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.lib()
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc: "
-        f"{'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'})")
+        f"{'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'}) [{card}]")
 
 
 def all_launches() -> dict:
@@ -118,7 +138,7 @@ def reset_launches() -> None:
     loss_of.reset_launches()
 
 
-def phase_kernels(device, table: dict, cases_fn, label: str) -> None:
+def phase_kernels(device, card: str, table: dict, cases_fn, label: str) -> None:
     """Every case of ``cases_fn`` in fp32 and bf16, kernel vs plain; fills
     each kernel's row of ``table`` (largest error; times and bound of its
     timed bf16 case)."""
@@ -140,7 +160,7 @@ def phase_kernels(device, table: dict, cases_fn, label: str) -> None:
             log(f"[{label}] {str(dtype)[6:]:8s} {case.name:44s} out_err {r['out_err']:.2e} "
                 f"sums_err {r['stats_err']:.2e} kernel {r['ms']:8.3f} ms plain "
                 f"{r['plain_ms']:8.3f} ms{lib} bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
-                f"{'ok' if r['ok'] else 'FAIL'}")
+                f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
             if not r["ok"]:
                 failed.append((str(dtype), case.name))
         torch.cuda.empty_cache()
@@ -185,27 +205,8 @@ def phase_forward(device, card: str):
     return model, model_fp32
 
 
-def phase_slice(model, model_fp32, device, card: str) -> dict:
-    from medseg_torch.engine.evaluate import Validator
-    from medseg_torch.ops.sliding_window import SlidingWindowSpec, sliding_window_inference
-
-    spec = SlidingWindowSpec(roi=(96, 96, 96), overlap=0.5, sw_batch=4, mode="gaussian")
-    validator = Validator(model, 14, "ct", spec, device=device)
-    rng = np.random.default_rng(0)
-
-    small = rng.standard_normal((128, 128, 96, 1), dtype=np.float32)
-    got = validator.infer_volume(small)
-    with torch.no_grad():
-        ref = sliding_window_inference(
-            small, lambda w: model_fp32(w, return_encoder_features=False), 14, spec,
-            device=device,
-        )
-    err = rel_l2(got, ref)
-    log(f"[slice] 128x128x96 volume: Validator (kernels, bf16) vs plain fp32 SWI rel L2 {err:.3e}")
-    if not err <= FWD_REL_L2_BOUND:
-        raise RuntimeError(f"small-volume SWI rel L2 {err} above {FWD_REL_L2_BOUND}")
-
-    volume = rng.standard_normal((512, 512, 160, 1), dtype=np.float32)
+def timed_volume(validator, volume) -> tuple[torch.Tensor, float, dict]:
+    """One warm run, then one timed run whose kernel launches are counted."""
     validator.infer_volume(volume)  # warm
     torch.cuda.synchronize()
     reset_launches()
@@ -213,16 +214,175 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
     out = validator.infer_volume(volume)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = all_launches()
-    if tuple(out.shape) != (512, 512, 160, 14) or out.dtype != torch.float32:
-        raise RuntimeError(f"config-4 output {tuple(out.shape)} {out.dtype}")
+    return out, seconds, all_launches()
+
+
+def check_volume(out: torch.Tensor, shape, label: str) -> None:
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.float32:
+        raise RuntimeError(f"{label}: output {tuple(out.shape)} {out.dtype}, expected {shape}")
     if not torch.isfinite(out).all():
-        raise RuntimeError("config-4 output has non-finite values")
-    log(f"[slice] config 4 512x512x160: {seconds:.3f} s/volume, {300 / seconds:.1f} windows/s, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches {launches}")
-    missing = [name for name in SERVING_KERNELS if launches[name] == 0]
+        raise RuntimeError(f"{label}: non-finite values")
+
+
+def require_launched(launches: dict, names, label: str) -> None:
+    missing = [name for name in names if launches[name] == 0]
     if missing:
-        raise RuntimeError(f"kernels not launched on the serving path: {missing}")
+        raise RuntimeError(f"kernels not launched on the {label} path: {missing}")
+
+
+def phase_slice(model, model_fp32, device, card: str) -> dict:
+    """Both routes on small volumes against the plain fp32 walk, then config
+    4 through the z-row walk with an fp32 and a bf16 accumulator."""
+    from medseg_torch.engine.evaluate import Validator
+    from medseg_torch.ops.sliding_window import (
+        SlidingWindowSpec,
+        sliding_window_inference,
+        zrow_supported,
+    )
+
+    spec = SlidingWindowSpec(roi=(96, 96, 96), overlap=0.5, sw_batch=4, mode="gaussian")
+    validators = {acc: Validator(model, 14, "ct", spec, acc_dtype=acc, device=device)
+                  for acc in ("fp32", "bf16")}
+    rng = np.random.default_rng(0)
+    for shape, route in (((128, 128, 96), "z-row"), ((128, 128, 97), "flat")):
+        if zrow_supported(shape, spec) != (route == "z-row"):
+            raise RuntimeError(f"{shape} should take the {route} walk")
+        small = rng.standard_normal(shape + (1,), dtype=np.float32)
+        with torch.no_grad():
+            ref = sliding_window_inference(
+                small, lambda w: model_fp32(w, return_encoder_features=False), 14, spec,
+                device=device,
+            )
+        for acc, validator in validators.items():
+            reset_launches()
+            got = validator.infer_volume(small)
+            torch.cuda.synchronize()
+            require_launched(all_launches(), ZROW_KERNELS if route == "z-row" else FLAT_KERNELS,
+                             f"small {route}")
+            err = rel_l2(got, ref)
+            log(f"[slice] {'x'.join(map(str, shape))} volume ({route} walk, acc {acc}): Validator "
+                f"(kernels, bf16) vs plain fp32 SWI rel L2 {err:.3e} (bound {FWD_REL_L2_BOUND})")
+            if not err <= FWD_REL_L2_BOUND:
+                raise RuntimeError(f"small-volume SWI ({route}, {acc}) rel L2 {err}")
+
+    volume = rng.standard_normal((512, 512, 160, 1), dtype=np.float32)
+    if not zrow_supported(volume.shape[:3], spec):
+        raise RuntimeError("config 4 should take the z-row walk")
+    launches = {}
+    for acc, validator in validators.items():
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds, launches[acc] = timed_volume(validator, volume)
+        check_volume(out, (512, 512, 160, 14), f"config 4 (acc {acc})")
+        log(f"[slice] config 4 512x512x160 z-row walk, acc {acc}: {seconds:.3f} s/volume, "
+            f"{300 / seconds:.1f} windows/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches "
+            f"{launches[acc]}")
+        require_launched(launches[acc], ZROW_KERNELS, "config-4")
+        if launches[acc]["outhead_row_of"] != CONFIG4_K4_LAUNCHES:
+            raise RuntimeError(f"config 4: {launches[acc]['outhead_row_of']} K4 launches, "
+                               f"expected {CONFIG4_K4_LAUNCHES}")
+    return launches["bf16"]
+
+
+def phase_brats(device, card: str) -> dict:
+    """BASELINE config 8: UNETR-B/16 with 4 in and 4 out channels, 128^3
+    windows, overlap 0.5, Gaussian, bf16 kernels, bf16 accumulator."""
+    from medseg_torch.engine.evaluate import Validator
+    from medseg_torch.models.unetr import init_weights, unetr_b16
+    from medseg_torch.ops.sliding_window import (
+        SlidingWindowSpec,
+        sliding_window_inference,
+        zrow_supported,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    model = init_weights(unetr_b16(4, 4, 128, dtype=torch.bfloat16), g).to(device).eval()
+    model_fp32 = fp32_twin(model)
+    spec = SlidingWindowSpec(roi=(128, 128, 128), overlap=0.5, sw_batch=4, mode="gaussian")
+    validator = Validator(model, 4, "mri", spec, acc_dtype="bf16", device=device)
+    rng = np.random.default_rng(1)
+    small = 0.3 * rng.standard_normal((144, 144, 131, 4), dtype=np.float32)
+    with torch.no_grad():
+        ref = sliding_window_inference(
+            small, lambda w: model_fp32(w, return_encoder_features=False), 4, spec, device=device
+        )
+    err = rel_l2(validator.infer_volume(small), ref)
+    log(f"[brats] 144x144x131x4 volume (flat walk): Validator (kernels, bf16, acc bf16) vs plain "
+        f"fp32 SWI rel L2 {err:.3e} (bound {FWD_REL_L2_BOUND})")
+    if not err <= FWD_REL_L2_BOUND:
+        raise RuntimeError(f"BraTS small-volume SWI rel L2 {err} above {FWD_REL_L2_BOUND}")
+    del model_fp32, ref
+    torch.cuda.empty_cache()
+
+    volume = 0.3 * rng.standard_normal((240, 240, 155, 4), dtype=np.float32)
+    if zrow_supported(volume.shape[:3], spec):
+        raise RuntimeError("config 8 at bucket 1 should take the flat walk")
+    torch.cuda.reset_peak_memory_stats()
+    out, seconds, launches = timed_volume(validator, volume)
+    check_volume(out, (240, 240, 155, 4), "config 8")
+    log(f"[brats] config 8 240x240x155x4 flat walk, acc bf16: {seconds:.3f} s/volume, "
+        f"{18 / seconds:.1f} windows/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"[{card}]; launches {launches}")
+    require_launched(launches, FLAT_KERNELS, "config-8")
+    return launches
+
+
+def phase_cli(device, card: str) -> dict:
+    """The serving CLI end to end on a synthetic abdomenCT directory of two
+    CT volumes (1.5 x 1.5 x 2 mm voxels), seeded UNETR-B/16 weights."""
+    from medseg_torch.cli import infer
+    from medseg_torch.config import preset
+    from medseg_torch.data.nifti import read_nifti, write_nifti
+    from medseg_torch.data.pipelines import val_transforms_device
+    from medseg_torch.models.unetr import init_weights, unetr_b16
+
+    rng = np.random.default_rng(2)
+    affine = np.diag([1.5, 1.5, 2.0, 1.0])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data", "abdomenCT")
+        os.makedirs(os.path.join(root, "imagesTr"))
+        entries = []
+        for i in range(2):
+            image = rng.normal(100.0, 80.0, size=CLI_VOLUME).astype(np.float32)
+            write_nifti(os.path.join(root, "imagesTr", f"ct{i}.nii.gz"), image, affine)
+            entries.append({"image": f"imagesTr/ct{i}.nii.gz"})
+        with open(os.path.join(root, "dataset.json"), "w") as f:
+            json.dump({"training": entries}, f)
+        ckpt = os.path.join(tmp, "unetr_b16.pth")
+        model = init_weights(unetr_b16(1, N_CLASSES, 96), torch.Generator().manual_seed(0))
+        torch.save(model.state_dict(), ckpt)
+        del model
+        stats_path = os.path.join(tmp, "stats.json")
+        reset_launches()
+        written = infer.main([
+            os.path.join(tmp, "data"), "abdomenCT", ckpt, os.path.join(tmp, "out"),
+            str(N_CLASSES), "--bf16", "--sw-overlap", "0.5", "--sw-mode", "gaussian",
+            "--stats-json", stats_path,
+        ])
+        torch.cuda.synchronize()
+        launches = all_launches()
+        with open(stats_path) as f:
+            stats = json.load(f)
+        chain = val_transforms_device(preset("abdomenCT", N_CLASSES).data, device)
+        for entry, path in zip(entries, written):
+            want = chain({"image": os.path.join(root, entry["image"])})
+            mask = read_nifti(path)
+            if mask.data.shape != tuple(want["image"].shape[:3]) or mask.data.dtype != np.int16:
+                raise RuntimeError(f"CLI mask {path}: {mask.data.shape} {mask.data.dtype}, "
+                                   f"expected {tuple(want['image'].shape[:3])} int16")
+            if not np.allclose(mask.affine, want["image_affine"], atol=1e-4):
+                raise RuntimeError(f"CLI mask {path}: affine {mask.affine} != {want['image_affine']}")
+            labels = np.unique(mask.data)
+            if labels.min() < 0 or labels.max() >= N_CLASSES:
+                raise RuntimeError(f"CLI mask {path}: labels {labels}")
+    if len(written) != 2:
+        raise RuntimeError(f"CLI wrote {written}")
+    log(f"[cli] medseg_torch.cli.infer --bf16 on 2 CT volumes {'x'.join(map(str, CLI_VOLUME))} at "
+        f"1.5x1.5x2 mm (device preprocessing, z-row walk, acc bf16): first volume "
+        f"{stats['first_volume_seconds']:.3f} s, end to end {stats['e2e_volumes_per_sec']:.4f} "
+        f"vol/s after it [{card}]; masks {mask.data.shape} int16, labels {labels.tolist()}; "
+        f"launches {launches}")
+    require_launched(launches, ZROW_KERNELS, "CLI")
     return launches
 
 
@@ -312,22 +472,27 @@ def main() -> int:
     from medseg_torch.kernels import kernel_check
 
     device, card = phase_device()
-    phase_build()
+    phase_build(card)
     table: dict = {}
-    phase_kernels(device, table, kernel_check.kernel_cases, "kernel")
+    phase_kernels(device, card, table, kernel_check.kernel_cases, "kernel")
+    phase_kernels(device, card, table, kernel_check.brats_cases, "brats-kernel")
     model, model_fp32 = phase_forward(device, card)
-    serving = phase_slice(model, model_fp32, device, card)
+    paths = {"serving": phase_slice(model, model_fp32, device, card)}
     del model, model_fp32
     torch.cuda.empty_cache()
-    phase_kernels(device, table, kernel_check.training_cases, "train-kernel")
-    train = phase_train(device, card)
+    paths["brats"] = phase_brats(device, card)
+    torch.cuda.empty_cache()
+    paths["cli"] = phase_cli(device, card)
+    torch.cuda.empty_cache()
+    phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
+    paths["train"] = phase_train(device, card)
     kernels = []
     for name, (src, tpu, _) in KERNELS.items():
         row = table[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": serving[name] if name in SERVING_KERNELS else train[name],
-            "launches_by_path": {"serving": serving[name], "train": train[name]},
+            "launches": paths[HOME_PATH.get(name, "serving")][name],
+            "launches_by_path": {path: launches[name] for path, launches in paths.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],

@@ -1,4 +1,5 @@
-"""The weight bridge: JAX package params -> the port's ``state_dict``.
+"""The weight bridge (JAX package params -> the port's ``state_dict``) and
+the load of a reference ``.pth``.
 
 ``state_dict_from_flax`` maps the flax parameter tree of
 ``medseg.models.unetr.UNETR`` (a nested dict of arrays) onto the MONAI-0.6
@@ -7,10 +8,16 @@ and that ``medseg_torch.models.unetr.UNETR`` carries, so
 ``convert_torch_state_dict(state_dict_from_flax(p))`` gives ``p`` back. The
 array transforms invert that module's ``_conv_kernel`` / ``_convt_kernel`` /
 ``_linear_kernel``.
+
+``load_torch_checkpoint`` loads a MONAI-schema ``.pth``/``.pt`` into a port
+model with the JAX package's rules (``convert_torch_state_dict`` +
+``merge_params``): a key the schema does not know raises, a key the file
+lacks keeps the model's value, a shape that differs raises.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any
 
@@ -76,3 +83,27 @@ def state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
         v = _torch_value(p, np.asarray(leaf, dtype=np.float32))
         out[_torch_key(p)] = torch.from_numpy(np.ascontiguousarray(v))
     return out
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference ``.pth``/``.pt`` state_dict into ``model`` in place and
+    return it. A directory (an orbax checkpoint of the JAX package, or a
+    train-state checkpoint) raises NotImplementedError."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a checkpoint directory; the port loads .pth/.pt state_dicts only "
+            "(train-state and orbax checkpoints: ROADMAP.md Queue 1 item 7)"
+        )
+    state_dict = torch.load(path, map_location="cpu")
+    own = model.state_dict()
+    merged = dict(own)
+    for key, value in state_dict.items():
+        if key not in own:
+            raise KeyError(f"unrecognized reference checkpoint key: {key}")
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch for {key}: model {tuple(own[key].shape)} vs "
+                             f"checkpoint {tuple(value.shape)}")
+        merged[key] = value.to(own[key].dtype)
+    model.load_state_dict(merged)
+    return model

@@ -1,11 +1,17 @@
 """Validation: sliding-window inference + Dice (counterpart of
 ``medseg/engine/evaluate.py``).
 
-Per volume: blended whole-volume logits through the fused serving forward
-(``kernels.unetr_of.fast_apply_v3`` with the blend weight folded into its
-out head), the task's post-transform, Dice accumulation; then mean and
-per-class aggregates. The fused forward launches the CUDA kernels on a CUDA
-device and runs their plain versions on the CPU.
+Per volume: blended whole-volume logits, the task's post-transform, Dice
+accumulation; then mean and per-class aggregates. With the fast path (the
+default) the windows go through the fused serving forward
+(``kernels.unetr_of.fast_apply_v3``, blend weight folded into its out head),
+routed as the JAX Validator routes them without a mesh: grids that
+``zrow_supported`` accepts take the z-row walk, whose out head (K4) adds the
+windows straight into the volume accumulator; other grids take the flat
+walk (K3 logits added by slicing). The fused forward launches the CUDA
+kernels on a CUDA device and runs their plain versions on the CPU. Without
+the fast path the module forward runs through the flat walk with an fp32
+accumulator (the JAX "ndhwc" route, which does not read ``acc_dtype``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,12 @@ import torch
 from medseg_torch.kernels.unetr_of import fast_apply_v3, fused_weights
 from medseg_torch.ops.metrics import DiceAccumulator
 from medseg_torch.ops.post import argmax_onehot, sigmoid_threshold, to_onehot
-from medseg_torch.ops.sliding_window import SlidingWindowSpec, sliding_window_inference
+from medseg_torch.ops.sliding_window import (
+    SlidingWindowSpec,
+    sliding_window_inference,
+    zrow_supported,
+)
+from medseg_torch.ops.swi_zrow import sliding_window_inference_zrow
 
 
 @dataclasses.dataclass
@@ -34,32 +45,61 @@ class Validator:
     Args:
       model: ``medseg_torch.models.unetr.UNETR``; moved to ``device``. Its
         ``dtype`` (default fp32) is the kernels' compute dtype and the dtype
-        of the window logits; the blend accumulates in fp32.
+        of the window logits.
       n_classes: output channels.
       task: "ct" (argmax/one-hot post) or "mri" (sigmoid + threshold).
       spec: sliding-window grid/blending configuration.
+      use_fast_path: the fused forward (kernels) and the z-row/flat routing;
+        False runs the module forward through the flat walk.
+      acc_dtype: "fp32" (default, the MONAI contract) or "bf16": the blend
+        accumulator of the fast path's walks.
       device: where the model, the windows and the accumulator live.
     """
 
     def __init__(self, model, n_classes: int, task: str, spec: SlidingWindowSpec, *,
+                 use_fast_path: bool = True, acc_dtype: str = "fp32",
                  device: torch.device | str) -> None:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.n_classes = n_classes
         self.task = task
         self.spec = spec
-        weights = fused_weights(self.model)  # the kernels' weights, cast once
+        self.use_fast_path = use_fast_path
+        self.acc_dtype = acc_dtype
+        if use_fast_path:
+            weights = fused_weights(self.model)  # the kernels' weights, cast once
 
-        def apply_fn(windows, wgt):
-            return fast_apply_v3(self.model, windows, weights, out_scale=wgt)
+            def apply_fn(windows, wgt):
+                return fast_apply_v3(self.model, windows, weights, out_scale=wgt)
+
+            def apply_acc(windows, wgt, starts, acc):
+                fast_apply_v3(self.model, windows, weights, out_scale=wgt, starts=starts, acc=acc)
+
+            self._apply_acc = apply_acc
+        else:
+
+            def apply_fn(windows):
+                return self.model(windows, return_encoder_features=False)
 
         self._apply_fn = apply_fn
 
+    @torch.no_grad()
     def infer_volume(self, image, spec: SlidingWindowSpec | None = None) -> torch.Tensor:
         """Blended whole-volume logits, (D, H, W, K) fp32 on the device."""
+        spec = spec or self.spec
+        if not self.use_fast_path:
+            return sliding_window_inference(
+                image, self._apply_fn, self.n_classes, spec, device=self.device,
+            )
+        spatial = tuple(int(v) for v in image.shape[-4:-1])
+        if zrow_supported(spatial, spec):
+            return sliding_window_inference_zrow(
+                image, self._apply_acc, self.n_classes, spec, device=self.device,
+                acc_dtype=self.acc_dtype,
+            )
         return sliding_window_inference(
-            image, self._apply_fn, self.n_classes, spec or self.spec,
-            device=self.device, apply_takes_weight=True,
+            image, self._apply_fn, self.n_classes, spec, device=self.device,
+            apply_takes_weight=True, acc_dtype=self.acc_dtype,
         )
 
     def predict_mask(self, image, spec: SlidingWindowSpec | None = None) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Fused conv kernels of the serving forward and the conv backward of the
 training step (counterpart of ``medseg/kernels/conv_of.py``).
 
-Five wrappers, each beside its plain PyTorch version in this module:
+Six wrappers, each beside its plain PyTorch version in this module:
 
 - ``conv3x3x3_of`` (K1): 3x3x3 same-pad conv, optional input prologue
   ``leaky(a*x + b)`` (the previous instance norm + activation), optional 1x1x1
@@ -14,6 +14,8 @@ Five wrappers, each beside its plain PyTorch version in this module:
   ``[up ; leaky(ay*y + by + ax*x + bx)]`` built from three streams;
 - ``outhead_of`` (K3): ``leaky(az*z + bz + ar*res + br)`` -> 1x1x1 head + bias,
   times a per-voxel blend weight;
+- ``outhead_row_of`` (K4): K3 for a batch of sliding windows, added straight
+  into the volume accumulator (no per-window logits in memory);
 - ``conv3x3x3_wgrad_of`` (K6): the filter gradient of a no-prologue 3x3x3
   conv, fp32.
 
@@ -30,6 +32,8 @@ counts its kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -44,6 +48,9 @@ WGRAD_CC = 8  # input channels per wgrad block (WCC of csrc/wgrad_of.cu)
 WGRAD_TILE = 16  # (y, x) edge of a wgrad voxel tile (WTX = WTY)
 WGRAD_BLOCKS_PER_SM = 3  # 68 KB of shared memory per block: three fit in 227 KB
 OUTHEAD_MAX_C = 64  # MAXC of csrc/outhead_of.cu
+OUTHEAD_ROW_MAX_C = 32  # largest MAXC of csrc/outhead_row_of.cu
+OUTHEAD_ROW_MAX_K = 32  # largest MAXK of csrc/outhead_row_of.cu
+OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu: windows per launch
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -100,14 +107,44 @@ def conv3x3x3_wgrad_of_plain(x, g):
     )
 
 
-def outhead_of_plain(z, res, az, bz, ar, br, kout, bias, scale=None):
+def _outhead_fp32(z, res, az, bz, ar, br, kout, bias, scale=None):
     comb = leaky_relu(z.float() * _bc(az) + _bc(bz) + res.float() * _bc(ar) + _bc(br))
     comb = comb.to(kout.dtype).float()
     logits = torch.einsum("kc,bcdhw->bkdhw", kout.float(), comb)
     logits = logits + bias.float()[None, :, None, None, None]
     if scale is not None:
         logits = logits * scale
-    return logits.to(kout.dtype)
+    return logits
+
+
+def outhead_of_plain(z, res, az, bz, ar, br, kout, bias, scale=None):
+    return _outhead_fp32(z, res, az, bz, ar, br, kout, bias, scale).to(kout.dtype)
+
+
+def _window_box(starts, roi):
+    """Origin and extent of the bounding box of windows of ``roi`` at
+    ``starts`` ((B, 3) host ints)."""
+    lo = [min(int(s[i]) for s in starts) for i in range(3)]
+    hi = [max(int(s[i]) for s in starts) + roi[i] for i in range(3)]
+    return lo, [b - a for a, b in zip(lo, hi)]
+
+
+def overlap_add_plain(windows: torch.Tensor, starts, acc: torch.Tensor) -> None:
+    """Adds fp32 windows (B, K, rd, rh, rw) at ``starts`` into ``acc`` (K, D,
+    H, W) in place: summed in fp32 in window order into the windows'
+    bounding box, which is added into ``acc`` with one rounding to its dtype."""
+    roi = windows.shape[2:]
+    lo, ext = _window_box(starts, roi)
+    box = torch.zeros((windows.shape[1], *ext), dtype=torch.float32, device=windows.device)
+    for s, win in zip(starts, windows.float()):
+        o = [int(s[i]) - lo[i] for i in range(3)]
+        box[:, o[0] : o[0] + roi[0], o[1] : o[1] + roi[1], o[2] : o[2] + roi[2]] += win
+    region = acc[:, lo[0] : lo[0] + ext[0], lo[1] : lo[1] + ext[1], lo[2] : lo[2] + ext[2]]
+    region.copy_(region.float() + box)
+
+
+def outhead_row_of_plain(z, res, az, bz, ar, br, kout, bias, scale, starts, acc) -> None:
+    overlap_add_plain(_outhead_fp32(z, res, az, bz, ar, br, kout, bias, scale), starts, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +300,67 @@ def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
     return out
 
 
+def _host_starts(starts, bsz: int, roi, acc_shape) -> list[tuple[int, int, int]]:
+    """(B, 3) window starts as host ints, each window inside the accumulator."""
+    rows = [tuple(int(v) for v in s) for s in torch.as_tensor(starts).tolist()]
+    if len(rows) != bsz or any(len(s) != 3 for s in rows):
+        raise ValueError(f"starts must be ({bsz}, 3), got {tuple(torch.as_tensor(starts).shape)}")
+    for s in rows:
+        if any(v < 0 or v + r > n for v, r, n in zip(s, roi, acc_shape[1:])):
+            raise ValueError(f"window at {s} of size {tuple(roi)} leaves the accumulator "
+                             f"{tuple(acc_shape[1:])}")
+    return rows
+
+
+def outhead_row_of(z, res, az, bz, ar, br, kout, bias, scale, starts, acc) -> None:
+    """K4. K3's combine, head, bias and blend weight for a batch of windows,
+    added straight into the volume accumulator: z, res (B, C, rd, rh, rw) in
+    the compute dtype; affines (B, C) fp32; kout (K_pad, C); bias (K_pad,)
+    fp32; scale (B, 1, rd, rh, rw) fp32; starts (B, 3) int window origins in
+    ``acc``, read on the host (a CPU tensor or a sequence); acc (K_pad, D, H,
+    W) fp32 or bf16, updated in place. The windows are summed in fp32 and
+    each voxel of ``acc`` they cover is rounded once; voxels they do not
+    cover are left untouched."""
+    bsz, c, rd, rh, rw = z.shape
+    if acc.ndim != 4:
+        raise ValueError(f"acc must be (K_pad, D, H, W), got {tuple(acc.shape)}")
+    rows = _host_starts(starts, bsz, (rd, rh, rw), acc.shape)
+    if z.device.type == "cpu":
+        return outhead_row_of_plain(z, res, az, bz, ar, br, kout, bias, scale, rows, acc)
+    dev = _device_of(z)
+    dt = kout.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
+    if acc.dtype not in _DTYPES:
+        raise ValueError(f"accumulator dtype {acc.dtype} not supported (float32 or bfloat16)")
+    k = kout.shape[0]
+    if c > OUTHEAD_ROW_MAX_C or k > OUTHEAD_ROW_MAX_K:
+        raise ValueError(f"out head row: C={c}, K={k} above the kernel's register slots "
+                         f"({OUTHEAD_ROW_MAX_C}, {OUTHEAD_ROW_MAX_K})")
+    _check(z, "z", (bsz, c, rd, rh, rw), dt, dev)
+    _check(res, "res", (bsz, c, rd, rh, rw), dt, dev)
+    for name, t in (("az", az), ("bz", bz), ("ar", ar), ("br", br)):
+        _check(t, name, (bsz, c), torch.float32, dev)
+    _check(kout, "kout", (k, c), dt, dev)
+    _check(bias, "bias", (k,), torch.float32, dev)
+    _check(scale, "scale", (bsz, 1, rd, rh, rw), torch.float32, dev)
+    _check(acc, "acc", (k, *acc.shape[1:]), acc.dtype, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i in range(0, bsz, OUTHEAD_ROW_MAX_B):
+        part = rows[i : i + OUTHEAD_ROW_MAX_B]
+        nb = len(part)
+        lo, ext = _window_box(part, (rd, rh, rw))
+        err = _build.lib().medseg_outhead_row(
+            dev.index, int(dt == torch.bfloat16), int(acc.dtype == torch.bfloat16),
+            _ptr(z[i]), _ptr(res[i]), _ptr(az[i]), _ptr(bz[i]), _ptr(ar[i]), _ptr(br[i]),
+            _ptr(kout), _ptr(bias), _ptr(scale[i]), _ptr(acc), nb, c, k, rd, rh, rw,
+            *acc.shape[1:], (ctypes.c_int * (3 * nb))(*[v for s in part for v in s]),
+            (ctypes.c_int * 3)(*lo), (ctypes.c_int * 3)(*ext), stream,
+        )
+        _build.check(err, "outhead row kernel")
+        outhead_row_of.launches += 1
+
+
 def conv3x3x3_wgrad_of(x, g):
     """K6. x (B, C, D, H, W) and the cotangent g (B, CO, D, H, W) in the
     compute dtype. Returns dW (CO, C, 3, 3, 3) fp32 of the same-pad,
@@ -299,7 +397,8 @@ _MODE_WRAPPER = {
     "plain": conv3x3x3_of, "affine_leaky": conv3x3x3_of, "cat2": conv3x3x3_of_cat2,
     "combine": conv3x3x3_of_combine,
 }
-KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of, conv3x3x3_wgrad_of)
+KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of, outhead_row_of,
+           conv3x3x3_wgrad_of)
 for _fn in KERNELS:
     _fn.launches = 0
 

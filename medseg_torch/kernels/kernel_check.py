@@ -2,7 +2,9 @@
 
 ``kernel_cases`` builds seeded inputs for every kernel of the serving path
 at the shapes the fused forward gives it (``full``^3 and ``full/2``^3
-volumes, ``fs`` = feature_size); ``training_cases`` does the same for the
+volumes, ``fs`` = feature_size; K4 on one z-row batch of six windows, fp32
+and bf16 accumulators); ``brats_cases`` does the same at the BraTS window
+(128^3, four input channels, 8 padded classes); ``training_cases`` for the
 kernels the training step adds (K6, K1's data gradient, K7 and K8).
 ``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
 and the plain version, and returns the largest errors, the least time the
@@ -14,8 +16,10 @@ ones.
 Tolerances (errors are max |kernel - plain| over max(1, max |plain|)):
 outputs 1e-4 in fp32 (both sides sum in fp32, only the order differs) and
 2e-2 in bf16 (one bf16 rounding of the output; the fp32 filter gradient
-sums identically rounded operands); sums of shape (B,) or (B, C) 1e-3 (the
-kernels' atomics add in a varying order).
+sums identically rounded operands), and 2e-2 for a bf16 accumulator
+updated by K4 (one bf16 rounding of the sum); sums of shape (B,) or (B, C)
+1e-3 (the kernels' atomics add in a varying order). K4 updates its
+accumulator in place: each side runs on its own copy of it.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ class Case:
     # channels_last_3d where that layout applies), timed as a yardstick only
     library: Callable | None = None
     library_cl: Callable | None = None
+    nbytes: float | None = None  # bytes the function must move, where not its inputs + outputs
+    inplace: int | None = None  # index of the argument the function updates (its output)
+    out_tol: float | None = None  # output tolerance, where not OUT_TOL[compute dtype]
 
 
 def _conv_flops(x: torch.Tensor, c_out: int, taps: int = 27) -> float:
@@ -127,6 +134,118 @@ def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) 
          randn(k_pad, scale=0.1, dt=torch.float32), scale),
         flops=2.0 * fs * k_pad * z[0, 0].numel() * batch,
     ))
+    # K4 on one batch of the config-4 z-row walk: 2 h-rows x 3 w-windows
+    # (w-starts 0, 48, 64 at 96^3), w-major as the walk orders them
+    starts = [(8, 8 + gh * half, 8 + ws) for ws in (0, half, half + full // 6) for gh in range(2)]
+    cases += outhead_row_cases(g, device, dtype, full, fs, k_pad, starts)
+    return cases
+
+
+def outhead_row_cases(g, device, dtype, full, fs, k_pad, starts) -> list[Case]:
+    """K4 on windows of ``full``^3 at ``starts`` (inside an accumulator that
+    leaves an 8-voxel margin around their box), with an fp32 and a bf16
+    accumulator holding random values."""
+    bsz = len(starts)
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dt)
+
+    def affine():
+        return (torch.rand((bsz, fs), generator=g) + 0.5).to(device), randn(bsz, fs, scale=0.5,
+                                                                          dt=torch.float32)
+
+    z, res = randn(bsz, fs, full, full, full), randn(bsz, fs, full, full, full)
+    scale = (torch.rand((bsz, 1, full, full, full), generator=g) * 0.5).to(device)
+    head = (randn(k_pad, fs, scale=fs**-0.5), randn(k_pad, scale=0.1, dt=torch.float32))
+    lo, ext = conv_of._window_box(starts, (full,) * 3)
+    acc_shape = (k_pad, *(a + e + 8 for a, e in zip(lo, ext)))
+    n_vox = bsz * full**3
+    cases = []
+    for acc_dtype in (torch.float32, torch.bfloat16):
+        acc = randn(*acc_shape, dt=acc_dtype)
+        box = k_pad * ext[0] * ext[1] * ext[2] * acc.element_size()
+        cases.append(Case(
+            f"out head row {fs}->{k_pad} acc {str(acc_dtype)[6:]} @{bsz}x{full}^3",
+            conv_of.outhead_row_of, conv_of.outhead_row_of_plain,
+            (z, res, *affine(), *affine(), *head, scale, torch.tensor(starts, dtype=torch.int32),
+             acc),
+            flops=2.0 * fs * k_pad * n_vox, inplace=10,
+            nbytes=2 * z.numel() * z.element_size() + 4.0 * n_vox + 2 * box,
+            out_tol=OUT_TOL[acc_dtype] if acc_dtype == torch.bfloat16 else None,
+        ))
+    return cases
+
+
+def brats_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 128) -> list[Case]:
+    """The serving kernels at the BraTS window (BASELINE config 8: 128^3,
+    four MRI channels, 4 classes padded to 8; sw_batch 4): enc1.conv1 with
+    its conv3 tap from four channels, enc1.conv2, dec2.conv1 with the
+    16-channel conv3 residual stream, dec3.conv1 and conv2 at 64^3, K3 and
+    one K4 batch of 2 x 2 windows."""
+    g = torch.Generator().manual_seed(2)
+    half, fs, c_in, k_pad = full // 2, 16, 4, 8
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dt)
+
+    def weight(c_out, c, k=3):
+        return randn(c_out, c, k, k, k, scale=(c * k**3) ** -0.5)
+
+    def affine(c):
+        return (torch.rand((batch, c), generator=g) + 0.5).to(device), randn(batch, c, scale=0.5,
+                                                                           dt=torch.float32)
+
+    def vol(c, s):
+        return randn(batch, c, s, s, s)
+
+    c = conv_of
+
+    def conv(name, x, w, *aff, wres=None):
+        lib, lib_cl = _conv_library(x, w)
+        flops = _conv_flops(x, w.shape[0]) + (0 if wres is None else _conv_flops(x, w.shape[0], 1))
+        return Case(name, c.conv3x3x3_of, c.conv3x3x3_of_plain, (x, w, *aff),
+                    {} if wres is None else {"wres": wres}, flops=flops, library=lib,
+                    library_cl=lib_cl)
+
+    cases = [
+        conv(f"brats enc1.conv1+conv3 {c_in}->{fs} @{batch}x{full}^3", vol(c_in, full),
+             weight(fs, c_in), wres=weight(fs, c_in, 1)),
+        conv(f"brats enc1.conv2 {fs}->{fs} affine @{batch}x{full}^3", vol(fs, full),
+             weight(fs, fs), *affine(fs)),
+        conv(f"brats dec3.conv2 {2 * fs}->{2 * fs} affine @{batch}x{half}^3", vol(2 * fs, half),
+             weight(2 * fs, 2 * fs), *affine(2 * fs)),
+    ]
+    xa, xb = vol(2 * fs, half), vol(2 * fs, half)
+    w_cat, x_cat = weight(2 * fs, 4 * fs), torch.cat([xa, xb], dim=1)
+    lib, lib_cl = _conv_library(x_cat, w_cat)
+    cases.append(Case(
+        f"brats dec3.conv1 ({2 * fs}+{2 * fs})->{2 * fs} @{batch}x{half}^3", c.conv3x3x3_of_cat2,
+        c.conv3x3x3_of_cat2_plain, (xa, xb, w_cat, weight(2 * fs, 4 * fs, 1)),
+        flops=_conv_flops(x_cat, 2 * fs, 28), library=lib, library_cl=lib_cl,
+    ))
+    del x_cat
+    up = vol(fs, full)
+    cases.append(Case(
+        f"brats dec2.conv1 ({fs}+{fs})->{fs} x{fs}ch @{batch}x{full}^3", c.conv3x3x3_of_combine,
+        c.conv3x3x3_of_combine_plain,
+        (up, vol(fs, full), vol(fs, full), *affine(fs), *affine(fs), weight(fs, 2 * fs),
+         weight(fs, 2 * fs, 1)),
+        flops=2.0 * 28 * 2 * fs * fs * up[0, 0].numel() * batch,
+    ))
+    z = vol(fs, full)
+    cases.append(Case(
+        f"brats out head {fs}->{k_pad} scaled @{batch}x{full}^3", c.outhead_of,
+        c.outhead_of_plain,
+        (z, vol(fs, full), *affine(fs), *affine(fs), randn(k_pad, fs, scale=fs**-0.5),
+         randn(k_pad, scale=0.1, dt=torch.float32),
+         (torch.rand((batch, 1, full, full, full), generator=g) * 0.5).to(device)),
+        flops=2.0 * fs * k_pad * z[0, 0].numel() * batch,
+    ))
+    starts = [(0, h, w) for w in (0, half) for h in (0, half)]
+    cases += [case for case in outhead_row_cases(g, device, dtype, full, fs, k_pad, starts)
+              if case.args[-1].dtype == torch.bfloat16]
+    for case in cases:
+        case.name = case.name.replace("out head row", "brats out head row")
     return cases
 
 
@@ -193,7 +312,10 @@ def bound_ms(case: Case, dtype: torch.dtype, outputs) -> tuple[float, str]:
     input read once, each output written once) over the HBM bandwidth."""
     rate = PEAK_FLOPS[torch.float32 if case.fp32_math else dtype]
     flop_s = case.flops / rate
-    byte_s = (_nbytes(case.args) + _nbytes(case.kwargs.values()) + _nbytes(outputs)) / HBM_BYTES_PER_S
+    nbytes = case.nbytes
+    if nbytes is None:
+        nbytes = _nbytes(case.args) + _nbytes(case.kwargs.values()) + _nbytes(outputs)
+    byte_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(flop_s, byte_s), "operations" if flop_s >= byte_s else "bytes"
 
 
@@ -221,8 +343,15 @@ def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
     sums separately), the largest absolute output error, pass/fail, the
     bound, and with ``timed`` the mean times in ms of the kernel, the plain
     version and the library call (None where there is none)."""
-    got = case.kernel(*case.args, **case.kwargs)
-    ref = case.plain(*case.args, **case.kwargs)
+    def call(fn):
+        if case.inplace is None:
+            return fn(*case.args, **case.kwargs)
+        args = list(case.args)
+        args[case.inplace] = args[case.inplace].clone()
+        fn(*args, **case.kwargs)
+        return args[case.inplace]
+
+    got, ref = call(case.kernel), call(case.plain)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
@@ -241,7 +370,7 @@ def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
         "out_err": out_err,
         "stats_err": stats_err,
         "max_abs_err": max_abs_err,
-        "ok": out_err <= OUT_TOL[dtype] and stats_err <= STATS_TOL,
+        "ok": out_err <= (case.out_tol or OUT_TOL[dtype]) and stats_err <= STATS_TOL,
         "bound_ms": bound,
         "bound_by": bound_by,
     }

@@ -1,6 +1,5 @@
-"""Fused UNETR serving forward (counterpart of ``medseg/kernels/unetr_of.py``,
-``fast_apply_v3`` in its non-z-row form: no parity planes, no z-packing, no
-W-fold).
+"""Fused UNETR serving forward (counterpart of ``medseg/kernels/unetr_of.py``
+``fast_apply_v3``, without its TPU layouts: no parity planes, no z-packing).
 
 Functionally ``UNETR.forward(x, return_encoder_features=False)``, with the
 48^3 decoder and the two full-resolution stages run as a chain of
@@ -11,7 +10,10 @@ Functionally ``UNETR.forward(x, return_encoder_features=False)``, with the
     enc1:  K1 conv1 (C_in=1: conv3 folds into an affine of x; C_in>1: conv3
            from conv1's residual tap) -> K1 conv2 (affine prologue)
     dec2:  transpose conv -> K2 combine [up ; enc1] (+conv3 tap) -> K1 conv2
-    out:   K3 combine + 1x1 head + bias [* blend weight]
+    out:   K3 combine + 1x1 head + bias [* blend weight], or, given the
+           volume accumulator and the windows' starts, K4: the same added
+           straight into the accumulator (the z-row walk's exit, the
+           counterpart of the JAX ``w_fold`` route)
 
 Each kernel's epilogue sums its output per (b, channel); ``_affine`` turns
 the sums into the next norm's affine, applied in the next kernel's
@@ -32,6 +34,8 @@ from medseg_torch.kernels.conv_of import (
     conv3x3x3_of_combine,
     norm_affine_from_stats,
     outhead_of,
+    outhead_row_of,
+    overlap_add_plain,
 )
 from medseg_torch.models.blocks import leaky_relu
 from medseg_torch.models.unetr import UNETR
@@ -124,7 +128,9 @@ def fast_apply_v3(
     weights: dict[str, torch.Tensor],
     *,
     out_scale: torch.Tensor | None = None,
-) -> torch.Tensor:
+    starts=None,
+    acc: torch.Tensor | None = None,
+) -> torch.Tensor | None:
     """Fused serving forward.
 
     Args:
@@ -132,21 +138,33 @@ def fast_apply_v3(
       weights: ``fused_weights(model)``.
       out_scale: (B, 1, D, H, W) fp32 per-voxel blend weight multiplied into
         the logits in the out-head epilogue (pre-weighted serving logits).
+      starts, acc: the accumulating exit. ``acc`` (K_pad, Dp, Hp, Wp) fp32 or
+        bf16 is the volume accumulator and ``starts`` (B, 3) the windows'
+        origins in it (host ints); the weighted logits are added into
+        ``acc`` in place (K4, ``conv_of.outhead_row_of``) and nothing is
+        returned. Needs ``out_scale``.
 
     Returns:
       (B, K_pad, D, H, W) logits in the compute dtype ``model.dtype`` (fp32
       when None; the low-resolution stages run in it too), K_pad
       = ``class_pad(out_channels)``; pad classes carry bias (times the
-      weight) and are cropped by the caller.
+      weight) and are cropped by the caller. None with ``acc``.
     """
     n_classes = model.out_channels
     k_pad = class_pad(n_classes)
     dtype = model.dtype or torch.float32
+    if (acc is None) != (starts is None) or (acc is not None and out_scale is None):
+        raise ValueError("the accumulating exit takes acc, starts and out_scale together")
     if not _chain_correct(model, x.shape):
         out = model(x, return_encoder_features=False)
         if out_scale is not None:
             out = out * out_scale
-        return F.pad(out, (0, 0, 0, 0, 0, 0, 0, k_pad - n_classes)).to(dtype)
+        out = F.pad(out, (0, 0, 0, 0, 0, 0, 0, k_pad - n_classes))
+        if acc is not None:
+            # the JAX fallback's XLA W-fold: the same add, no kernel
+            overlap_add_plain(out.float(), starts, acc)
+            return None
+        return out.to(dtype)
 
     fs = model.feature_size
     b, c_in, d, h, w = x.shape
@@ -194,4 +212,7 @@ def fast_apply_v3(
     za2, zb2 = _affine(zs2, zss2, d2.norm2, n_valid)
     za3, zb3 = _affine(rs, rss, d2.norm3, n_valid)
     head, bias = weights["out.weight"], weights["out.bias"]
+    if acc is not None:
+        outhead_row_of(z2, res, za2, zb2, za3, zb3, head, bias, out_scale, starts, acc)
+        return None
     return outhead_of(z2, res, za2, zb2, za3, zb3, head, bias, out_scale)

@@ -2,19 +2,23 @@
 ``medseg/ops/sliding_window.py``).
 
 The MONAI 0.6.0 ``sliding_window_inference`` contract, as the JAX package
-reproduces it: every spatial dim padded up to the ROI (half before); window
-starts ``k * int(roi * (1 - overlap))`` clipped to ``dim - roi``; each window
+reproduces it: every spatial dim padded up to the ROI (half before), and
+further up to a multiple of ``bucket_multiple`` where that is above 1 (the
+serving CLI's 32, so that its grids equal the JAX ones); window starts
+``k * int(roi * (1 - overlap))`` clipped to ``dim - roi``; each window
 weighted by an importance map (constant, or a Gaussian with
 ``sigma = sigma_scale * roi``) and normalized by the accumulated importance;
 padding cropped at the end. The grid, importance and count map are the same
 numpy code as the JAX package's, so they agree exactly.
 
-Windows run ``sw_batch`` at a time (the grid padded with zero-weight windows
-to a multiple of it, as in the JAX scan). The blend weight
-``importance * 1/count * validity`` is either multiplied here or handed to
-``apply_fn`` (``apply_takes_weight``, the fused forward folds it into its
-out-head kernel). The overlap-add goes into an fp32 ``(K, D, H, W)``
-accumulator by tensor slicing.
+This is the flat walk: windows run ``sw_batch`` at a time (the grid padded
+with zero-weight windows to a multiple of it, as in the JAX scan). The blend
+weight ``importance * 1/count * validity`` is either multiplied here or
+handed to ``apply_fn`` (``apply_takes_weight``, the fused forward folds it
+into its out-head kernel). The overlap-add goes into a ``(K, D, H, W)``
+accumulator in ``acc_dtype`` by tensor slicing. Grids that ``ppk_supported``
+(alias ``zrow_supported``) accepts can take the exact z-row walk instead
+(``ops/swi_zrow.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ class SlidingWindowSpec:
     sw_batch: int = 4
     mode: str = "constant"  # "constant" | "gaussian"
     sigma_scale: float = 0.125
+    bucket_multiple: int = 1  # round padded dims up to a multiple of this
+
+
+ACC_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def _scan_interval(image_size: Sequence[int], roi: Sequence[int], overlap: float):
@@ -116,6 +124,24 @@ def _count_map_cached(padded_shape, roi, overlap, mode, sigma_scale) -> np.ndarr
     return count
 
 
+def ppk_supported(spatial, spec: SlidingWindowSpec) -> bool:
+    """The routing predicate of the z-row walk (the JAX package's name, from
+    its parity-plane layout): even roi, even pads, and every window start
+    even (interval multiples and the clipped last starts)."""
+    roi = tuple(spec.roi)
+    if any(r % 2 for r in roi):
+        return False
+    pads = _pad_amounts(spatial, roi, spec.bucket_multiple)
+    if any(lo % 2 or (lo + hi + s) % 2 for (lo, hi), s in zip(pads, spatial)):
+        return False
+    padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
+    starts = compute_window_starts(padded, roi, spec.overlap)
+    return bool((starts % 2 == 0).all())
+
+
+zrow_supported = ppk_supported
+
+
 @lru_cache(maxsize=4)
 def _device_grid_cached(padded_shape, roi, overlap, mode, sigma_scale, sw_batch, device):
     """Grid constants, uploaded once per (shape, spec, device): starts
@@ -144,6 +170,7 @@ def sliding_window_inference(
     *,
     device: torch.device | str,
     apply_takes_weight: bool = False,
+    acc_dtype: str = "fp32",
 ) -> torch.Tensor:
     """Whole-volume inference.
 
@@ -157,6 +184,8 @@ def sliding_window_inference(
       n_classes: K.
       spec: grid/blending configuration.
       device: where the windows, the model and the accumulator live.
+      acc_dtype: "fp32" (the MONAI contract) or "bf16" (each weighted window
+        rounded to bf16 and added in bf16, as the JAX flat walk does).
 
     Returns:
       (D, H, W, K) float32 blended logits at the original size, on ``device``.
@@ -170,9 +199,7 @@ def sliding_window_inference(
         vol = vol[0]
     spatial = tuple(int(s) for s in vol.shape[:3])
     roi = tuple(spec.roi)
-    # pad up to the ROI only: the JAX package's bucketed padding bounds jit
-    # recompiles, which eager PyTorch does not have
-    pads = _pad_amounts(spatial, roi, 1)
+    pads = _pad_amounts(spatial, roi, spec.bucket_multiple)
     padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
     vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
     if any(lo or hi for lo, hi in pads):
@@ -196,10 +223,18 @@ def sliding_window_inference(
         else:
             out = apply_fn(windows).float() * wgt
         if acc is None:
-            acc = torch.zeros((out.shape[1],) + padded, dtype=torch.float32, device=device)
+            acc = torch.zeros((out.shape[1],) + padded, dtype=ACC_DTYPES[acc_dtype],
+                              device=device)
         for s, o in zip(starts_b, out):
-            window(acc, s).add_(o)
+            window(acc, s).add_(o.to(acc.dtype))
+    return crop_to_volume(acc, pads, spatial, n_classes, squeeze)
+
+
+def crop_to_volume(acc: torch.Tensor, pads, spatial, n_classes: int, squeeze: bool) -> torch.Tensor:
+    """(K', Dp, Hp, Wp) accumulator -> (D, H, W, K) fp32 at the original size
+    (with a leading 1 when ``squeeze``)."""
     (d0, _), (h0, _), (w0, _) = pads
     d, h, w = spatial
-    out = acc[:n_classes, d0 : d0 + d, h0 : h0 + h, w0 : w0 + w].permute(1, 2, 3, 0).contiguous()
+    view = acc[:n_classes, d0 : d0 + d, h0 : h0 + h, w0 : w0 + w].permute(1, 2, 3, 0)
+    out = torch.empty(view.shape, dtype=torch.float32, device=acc.device).copy_(view)  # one pass
     return out[None] if squeeze else out

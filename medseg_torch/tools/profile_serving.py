@@ -4,7 +4,8 @@
 
 Runs config 4 as ``chip_smoke.py`` does (UNETR-B/16, bf16, random weights
 from seed 0; a 512x512x160 one-channel volume; 96^3 windows, overlap 0.5,
-Gaussian blend, sw_batch 4) and measures, after warm runs:
+Gaussian blend: the z-row walk, K4, an fp32 accumulator) and measures,
+after warm runs:
 
 1. the fused forward on one batch of four windows: the CUDA-event time
    unprofiled, then ``torch.profiler`` over ``FORWARDS`` forwards: device
@@ -41,6 +42,7 @@ _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3
               "3": "K2 conv3x3x3_of_combine"}
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
+    ("K4 outhead_row_of", re.compile(r"outhead_row_kernel")),
     ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),
     ("K7 dice_ce_sums", re.compile(r"dice_ce_sums_kernel")),
     ("K8 dice_ce_bwd", re.compile(r"dice_ce_bwd_kernel")),

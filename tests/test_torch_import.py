@@ -39,8 +39,11 @@ def test_port_imports_no_jax_flax_or_triton():
         "medseg_torch.kernels.conv3d", "medseg_torch.kernels.loss_of",
         "medseg_torch.kernels.kernel_check", "medseg_torch.kernels.unetr_of",
         "medseg_torch.ops.sliding_window", "medseg_torch.ops.post", "medseg_torch.ops.metrics",
-        "medseg_torch.ops.losses", "medseg_torch.tools.profile_serving",
-        "medseg_torch.tools.profile_train",
+        "medseg_torch.ops.losses", "medseg_torch.ops.swi_zrow", "medseg_torch.ops.resample",
+        "medseg_torch.tools.profile_serving", "medseg_torch.tools.profile_train",
+        "medseg_torch.config", "medseg_torch.data.nifti", "medseg_torch.data.dataset",
+        "medseg_torch.data.transforms", "medseg_torch.data.pipelines",
+        "medseg_torch.utils.profiling", "medseg_torch.cli.common", "medseg_torch.cli.infer",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"

@@ -41,6 +41,16 @@ def test_kernels_match_plain(device, dtype):
 
 
 @DTYPES
+def test_brats_shaped_kernels_match_plain(device, dtype):
+    """The BraTS window's cases (four input channels, 8 padded classes, K4
+    with a bf16 accumulator), cut to 16^3."""
+    cases = kernel_check.brats_cases(device, dtype, batch=1, full=16)
+    results = [kernel_check.run_case(case, dtype) for case in cases]
+    bad = [r for r in results if not r["ok"]]
+    assert not bad, bad
+
+
+@DTYPES
 def test_training_kernels_match_plain(device, dtype):
     cases = kernel_check.training_cases(device, dtype, batch=2, full=16)
     results = [kernel_check.run_case(case, dtype) for case in cases]
@@ -59,7 +69,7 @@ def test_training_kernels_count_their_launches(device):
     # K1's data gradient: 16->32 one launch, 32->64 two 32-wide launches
     assert counts == {
         "conv3x3x3_of": 3, "conv3x3x3_of_cat2": 0, "conv3x3x3_of_combine": 0, "outhead_of": 0,
-        "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 1, "dice_ce_bwd": 1,
+        "outhead_row_of": 0, "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 1, "dice_ce_bwd": 1,
     }
 
 
@@ -114,9 +124,10 @@ def test_each_wrapper_counts_its_launches(device):
         case.kernel(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
+    # K4: one launch per case (six windows each, fp32 and bf16 accumulators)
     assert counts == {
         "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 1, "conv3x3x3_of_combine": 2, "outhead_of": 1,
-        "conv3x3x3_wgrad_of": 0,
+        "outhead_row_of": 2, "conv3x3x3_wgrad_of": 0,
     }
 
 
@@ -137,6 +148,24 @@ def test_wrapper_raises_instead_of_falling_back(device):
         loss_of.dice_ce_sums(logits, labels.long())
     with pytest.raises(ValueError, match="contiguous"):
         loss_of.dice_ce_sums(logits.transpose(2, 3), labels)
+    # K4: the accumulator's dtype, layout and extent are checked, never patched around
+    z = torch.randn(2, 16, 8, 8, 8, device=device)
+    aff = [torch.ones(2, 16, device=device)] * 4
+    head = (torch.randn(8, 16, device=device), torch.zeros(8, device=device))
+    scale = torch.rand(2, 1, 8, 8, 8, device=device)
+    acc = torch.zeros(8, 8, 8, 16, device=device)
+    args = (z, z, *aff, *head, scale, [(0, 0, 0), (0, 0, 8)])
+    conv_of.outhead_row_of(*args, acc)  # the valid call launches
+    with pytest.raises(ValueError, match="leaves the accumulator"):
+        conv_of.outhead_row_of(z, z, *aff, *head, scale, [(0, 0, 0), (0, 0, 9)], acc)
+    with pytest.raises(ValueError, match="accumulator dtype"):
+        conv_of.outhead_row_of(*args, acc.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_of.outhead_row_of(*args, torch.zeros(8, 8, 16, 8, device=device).transpose(2, 3))
+    with pytest.raises(ValueError, match="acc has shape"):
+        conv_of.outhead_row_of(*args, torch.zeros(16, 8, 8, 16, device=device))
+    with pytest.raises(ValueError, match="scale is on cpu"):
+        conv_of.outhead_row_of(z, z, *aff, *head, scale.cpu(), args[-1], acc)
 
 
 @pytest.mark.parametrize("c_in", [1, 4])
@@ -156,3 +185,28 @@ def test_fused_forward_matches_module(device, c_in):
     assert got.shape == (2, 8, 32, 32, 32)
     err = (got[:, :3] - ref).abs().max().item() / max(1.0, ref.abs().max().item())
     assert err < 1e-3  # fp32 chain: sums in another order than cuDNN's
+
+
+def test_fused_forward_accumulating_exit(device):
+    """The accumulating exit (K4) adds what the logits exit (K3) returns,
+    placed at the windows' starts."""
+    from medseg_torch.kernels.unetr_of import fast_apply_v3, fused_weights
+    from medseg_torch.models.unetr import UNETR, init_weights
+
+    g = torch.Generator().manual_seed(1)
+    model = UNETR(in_channels=1, out_channels=3, img_size=(32, 32, 32), feature_size=16,
+                  hidden_size=24, mlp_dim=48, num_heads=4, num_layers=4)
+    model = init_weights(model, g).to(device).eval()
+    weights = fused_weights(model)
+    x = torch.randn((4, 1, 32, 32, 32), generator=g).to(device)
+    scale = torch.rand((4, 1, 32, 32, 32), generator=g).to(device)
+    starts = [(0, 0, 0), (0, 16, 0), (0, 0, 16), (0, 16, 16)]
+    acc = torch.zeros((8, 32, 48, 48), device=device)
+    conv_of.reset_launches()
+    assert fast_apply_v3(model, x, weights, out_scale=scale, starts=starts, acc=acc) is None
+    assert conv_of.outhead_row_of.launches == 1 and conv_of.outhead_of.launches == 0
+    logits = fast_apply_v3(model, x, weights, out_scale=scale).float()
+    want = torch.zeros_like(acc)
+    for (d, h, w), o in zip(starts, logits):
+        want[:, d : d + 32, h : h + 32, w : w + 32] += o
+    assert (acc - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

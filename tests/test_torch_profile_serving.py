@@ -17,6 +17,8 @@ from medseg_torch.tools import profile_serving as ps
     ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, 3, true, 16>(medseg::ConvArgs)",
      "K2 conv3x3x3_of_combine"),
     ("void medseg::outhead_kernel<__nv_bfloat16>(...)", "K3 outhead_of"),
+    ("void medseg::(anonymous namespace)::outhead_row_kernel<__nv_bfloat16, float, 16, 16>"
+     "(medseg::(anonymous namespace)::RowArgs)", "K4 outhead_row_of"),
     ("void medseg::(anonymous namespace)::wgrad_kernel<__nv_bfloat16, 16>"
      "(medseg::(anonymous namespace)::WgradArgs)", "K6 conv3x3x3_wgrad_of"),
     ("medseg::(anonymous namespace)::wgrad_reduce_kernel(float const*, float*, int, int)",
