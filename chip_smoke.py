@@ -11,8 +11,10 @@ blend; its grid takes the z-row walk), the BraTS serving shape (BASELINE
 config 8: four MRI channels, 4 classes, 128^3 windows, a 240x240x155 volume,
 which takes the flat walk), the serving CLI end to end (NIfTI to NIfTI), and
 training, the supervised step of UNETR-B/16 (BASELINE config 5: batch 4 of
-96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight decay 1e-5). Phases,
-each raising on failure:
+96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight decay 1e-5), and
+ranking pretraining, both stages through the step and the pretraining CLI,
+with the flat per-conv route (K9) at feature size 32. Phases, each raising
+on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; TF32 off
    for every fp32 reference;
@@ -37,7 +39,23 @@ each raising on failure:
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
    whose losses must be finite and fall and whose kernel launches are
-   counted.
+   counted;
+10. flat-kernel: K9 against its plain version at the flat route's shape
+    (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed;
+11. pretrain: ranking pretraining of UNETR-B/16 (bf16, remat) through
+    ``make_pretrain_step`` on two noise volumes x two overlapping 96^3
+    crops: per stage (feat, then recon on the same state) the loss and
+    gradients against the fp32 module without kernels, one ranking step on
+    each axis and one contrastive step (finite losses; recon launches K1 and
+    K6 and leaves the ViT's gradients 0, feat launches neither), then one
+    warm and 5 timed steps (ms/step, peak memory);
+12. pretrain-flat: the recon step of a feature-size-32 UNETR with the flat
+    per-conv route on: decoder3.conv1 through K9 (2 launches per step, its
+    forward and the remat recompute), loss and gradients against the fp32
+    twin, ms/step;
+13. pretrain-cli: ``medseg_torch.cli.pretraining`` on four synthetic CT
+    volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
+    both stages' checkpoints and loss-vs-time artifacts, steps/s.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -46,6 +64,7 @@ The line before the last is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import os
 import subprocess
@@ -74,6 +93,8 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
                      "dice_ce_sums 14 classes @4x96^3"),
     "dice_ce_bwd": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:166",
                     "dice_ce_bwd 14 classes @4x96^3"),
+    "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_flat.cu", "medseg/kernels/conv3d.py:134",
+                       "dec3.conv1 128->64 (feature size 32) @4x48^3"),
 }
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
 # the training step, bf16 through the kernels vs the fp32 module without them
@@ -90,8 +111,23 @@ TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_
 CONFIG4_K4_LAUNCHES = 50  # 10 d-starts x 5 groups of 2 h-rows (3 w-windows each)
 # each kernel's launches come from the path that is its home
 HOME_PATH = {"outhead_of": "brats", "conv3x3x3_wgrad_of": "train", "dice_ce_sums": "train",
-             "dice_ce_bwd": "train"}
+             "dice_ce_bwd": "train", "conv3x3x3_flat": "pretrain-flat"}
 CLI_VOLUME = (200, 200, 120)  # CT voxels at 1.5 x 1.5 x 2 mm: ~300 x 300 x 240 after respacing
+# ranking pretraining (the pretraining CLI's defaults: 4 partitions, temperature
+# 0.1, lr 1e-4, weight decay 1e-5), bf16 through the kernels vs the fp32
+# module without them at the same weights, batch and slices: relative error
+# of the loss and relative L2 of all gradients concatenated. The ranking loss
+# is a sum of softplus of cosine differences over tau = 0.1, so its gradients
+# carry the bf16 rounding of the features amplified: a bound for wiring
+# faults (a wrong tap, slice or frozen leaf gives errors of order 1), the
+# kernels themselves are held to their plain versions in phase 10
+PRETRAIN_TEMP, PRETRAIN_PARTITIONS = 0.1, 4
+PRETRAIN_LOSS_REL_BOUND = 2e-2
+PRETRAIN_GRAD_REL_L2_BOUND = 3e-1
+PRETRAIN_TIMED_STEPS = 5
+RECON_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of")
+FLAT_LAUNCHES_PER_STEP = 2  # decoder3.conv1's forward and its recompute under remat
+CLI_PRETRAIN_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: ~192^3 after respacing
 
 
 def log(msg: str) -> None:
@@ -126,16 +162,18 @@ def phase_build(card: str) -> None:
 
 
 def all_launches() -> dict:
-    from medseg_torch.kernels import conv_of, loss_of
+    from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
-    return {fn.__name__: fn.launches for fn in conv_of.KERNELS + loss_of.KERNELS}
+    return {fn.__name__: fn.launches
+            for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
 
 
 def reset_launches() -> None:
-    from medseg_torch.kernels import conv_of, loss_of
+    from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
     conv_of.reset_launches()
     loss_of.reset_launches()
+    conv_flat.reset_launches()
 
 
 def phase_kernels(device, card: str, table: dict, cases_fn, label: str) -> None:
@@ -468,6 +506,244 @@ def phase_train(device, card: str) -> dict:
     return launches
 
 
+def pretrain_model(feature_size: int = 16):
+    """UNETR-B/16's widths (ViT-B, 96^3 crops, 14 out channels) at
+    ``feature_size``, bf16 compute, remat (config 5's setting)."""
+    from medseg_torch.models.unetr import UNETR
+
+    return UNETR(in_channels=1, out_channels=N_CLASSES, img_size=(CROP,) * 3,
+                 feature_size=feature_size, dtype=torch.bfloat16, remat=True)
+
+
+def pretrain_batch(g: torch.Generator, device) -> torch.Tensor:
+    """Two seeded noise volumes of 128^3, two overlapping 96^3 crops of each,
+    in the loader's order [vol1_crop1, vol1_crop2, vol2_crop1, vol2_crop2]."""
+    from medseg_torch.tools.profile_pretrain import batch
+
+    return batch(g, device)
+
+
+def pretrain_indices(update_arc: str, axis: int, rng: np.random.Generator) -> np.ndarray:
+    from medseg_torch.engine.pretrain import feature_dim_for_axis
+    from medseg_torch.ops.ranking import sample_partition_indices
+
+    dim = feature_dim_for_axis(CROP, update_arc, axis)
+    return sample_partition_indices(rng, dim, PRETRAIN_PARTITIONS)
+
+
+def compare_pretrain(model, images, update_arc: str, idx, label: str, card: str) -> None:
+    """One ranking loss and its gradients through the kernels (bf16) against
+    the fp32 twin without kernels (no conv routed, TF32 off), same weights,
+    batch and slices (axis 0)."""
+    from medseg_torch.engine.pretrain import make_pretrain_loss
+    from medseg_torch.kernels import conv3d
+
+    kw = dict(update_arc=update_arc, loss_type="ranking", num_partitions=PRETRAIN_PARTITIONS,
+              temperature=PRETRAIN_TEMP)
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=images.device)
+    model.zero_grad(set_to_none=True)
+    loss_k = make_pretrain_loss(model, **kw)(images, idx, 0)
+    loss_k.backward()
+    grads_k = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    ref = fp32_twin(model)
+    routing = conv3d.OF_MIN_HW, conv3d.PALLAS_PER_CONV
+    conv3d.OF_MIN_HW, conv3d.PALLAS_PER_CONV = float("inf"), False
+    try:
+        loss_r = make_pretrain_loss(ref, **kw)(images, idx, 0)
+        loss_r.backward()
+    finally:
+        conv3d.OF_MIN_HW, conv3d.PALLAS_PER_CONV = routing
+    diff2 = ref2 = got2 = 0.0
+    for n, p in ref.named_parameters():
+        if (p.grad is None) != (grads_k[n] is None):
+            raise RuntimeError(f"pretrain {label}: {n} has a gradient on one side only")
+        if p.grad is None:
+            continue
+        diff2 += (grads_k[n] - p.grad).square().sum().item()
+        ref2 += p.grad.square().sum().item()
+        got2 += grads_k[n].square().sum().item()
+    del ref, grads_k
+    torch.cuda.empty_cache()
+    loss_k, loss_r = loss_k.item(), loss_r.item()
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    grad_err = (diff2 / ref2) ** 0.5
+    log(f"[{label}] loss bf16 kernels {loss_k:.6f} vs fp32 module {loss_r:.6f}: rel err "
+        f"{loss_err:.3e} (bound {PRETRAIN_LOSS_REL_BOUND}); global gradient norm {got2 ** 0.5:.6e} "
+        f"vs {ref2 ** 0.5:.6e}, rel L2 {grad_err:.3e} (bound {PRETRAIN_GRAD_REL_L2_BOUND})")
+    if not (np.isfinite(loss_k) and loss_err <= PRETRAIN_LOSS_REL_BOUND
+            and grad_err <= PRETRAIN_GRAD_REL_L2_BOUND):
+        raise RuntimeError(f"pretrain {label}: loss rel err {loss_err}, gradient rel L2 {grad_err}")
+
+
+def time_pretrain_steps(step, state, images, update_arc: str, rng) -> tuple[float, float]:
+    """One warm step, then PRETRAIN_TIMED_STEPS steps, each read back with
+    ``float(loss)`` as the CLI does; ms/step and peak GiB."""
+    state, loss = step(state, images, pretrain_indices(update_arc, 0, rng), axis=0)
+    float(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(PRETRAIN_TIMED_STEPS):
+        state, loss = step(state, images, pretrain_indices(update_arc, 0, rng), axis=0)
+        float(loss)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PRETRAIN_TIMED_STEPS
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_pretrain(device, card: str) -> dict:
+    """Ranking pretraining of UNETR-B/16 through ``make_pretrain_step``: the
+    feat stage, then the recon stage on the same state; per stage one
+    ranking step on each axis and one contrastive step (launches counted),
+    then the timed steps."""
+    from medseg_torch.engine.pretrain import make_pretrain_step
+    from medseg_torch.engine.state import create_train_state
+
+    g = torch.Generator().manual_seed(0)
+    model = pretrain_model()
+    state = create_train_state(model, generator=g, learning_rate=1e-4, weight_decay=1e-5,
+                               device=device)
+    images = pretrain_batch(g, device)
+    rng = np.random.default_rng(0)
+    launches = {}
+    for arc in ("feat", "recon"):
+        compare_pretrain(model, images, arc, pretrain_indices(arc, 0, rng), f"pretrain-{arc}", card)
+        steps = {loss: make_pretrain_step(model, update_arc=arc, loss_type=loss,
+                                          num_partitions=PRETRAIN_PARTITIONS,
+                                          temperature=PRETRAIN_TEMP)
+                 for loss in ("ranking", "contrastive")}
+        reset_launches()
+        losses = []
+        for axis in (0, 1, 2):
+            state, loss = steps["ranking"](state, images, pretrain_indices(arc, axis, rng), axis=axis)
+            losses.append(loss)
+        state, loss = steps["contrastive"](state, images, pretrain_indices(arc, 0, rng), axis=0)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        launches[f"pretrain-{arc}"] = counts = all_launches()
+        losses = [v.item() for v in losses]
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"pretrain {arc}: non-finite loss {losses}")
+        if arc == "recon":
+            moved = [n for n, p in model.named_parameters()
+                     if n.startswith("vit.") and p.grad.count_nonzero().item()]
+            if moved:
+                raise RuntimeError(f"pretrain recon: frozen ViT parameters got gradients: {moved}")
+            require_launched(counts, RECON_KERNELS, "pretrain recon")
+        elif any(counts[name] for name in RECON_KERNELS):
+            raise RuntimeError(f"pretrain feat ran the decoder's kernels: {counts}")
+        ms, peak = time_pretrain_steps(steps["ranking"], state, images, arc, rng)
+        log(f"[pretrain-{arc}] UNETR-B/16 4x{CROP}^3 bf16 remat: {ms:.2f} ms/step, peak "
+            f"{peak:.1f} GiB [{card}]; losses (ranking axes 0/1/2, contrastive) "
+            f"{['%.6f' % v for v in losses]}; launches {counts}")
+    del model, state, images
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pretrain_flat(device, card: str) -> dict:
+    """The recon step at feature size 32 with the flat per-conv route on:
+    decoder3.conv1 (128 -> 64 at 48^3) runs through K9."""
+    from medseg_torch.engine.pretrain import make_pretrain_step
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.kernels import conv3d
+
+    g = torch.Generator().manual_seed(1)
+    model = pretrain_model(feature_size=32)
+    state = create_train_state(model, generator=g, learning_rate=1e-4, weight_decay=1e-5,
+                               device=device)
+    images = pretrain_batch(g, device)
+    rng = np.random.default_rng(1)
+    route = conv3d.PALLAS_PER_CONV
+    conv3d.PALLAS_PER_CONV = True
+    try:
+        compare_pretrain(model, images, "recon", pretrain_indices("recon", 0, rng),
+                         "pretrain-flat", card)
+        step = make_pretrain_step(model, update_arc="recon", loss_type="ranking",
+                                  num_partitions=PRETRAIN_PARTITIONS, temperature=PRETRAIN_TEMP)
+        reset_launches()
+        state, loss = step(state, images, pretrain_indices("recon", 0, rng), axis=0)
+        loss = loss.item()
+        launches = all_launches()
+        ms, peak = time_pretrain_steps(step, state, images, "recon", rng)
+    finally:
+        conv3d.PALLAS_PER_CONV = route
+    log(f"[pretrain-flat] UNETR-B (feature size 32) recon 4x{CROP}^3 bf16 remat, flat route on: "
+        f"{ms:.2f} ms/step, peak {peak:.1f} GiB [{card}]; loss {loss:.6f}; launches {launches}")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"pretrain flat: non-finite loss {loss}")
+    if launches["conv3x3x3_flat"] != FLAT_LAUNCHES_PER_STEP:
+        raise RuntimeError(f"pretrain flat: {launches['conv3x3x3_flat']} K9 launches in one recon "
+                           f"step, expected {FLAT_LAUNCHES_PER_STEP}")
+    require_launched(launches, RECON_KERNELS, "pretrain flat")
+    del model, state, images
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pretrain_cli(device, card: str) -> dict:
+    """The pretraining CLI end to end on a synthetic abdomenCT directory of
+    four CT volumes (1.5 x 1.5 x 2 mm voxels): one fold of two, one epoch per
+    stage, checkpoints every 2 steps, the default full-width model in bf16."""
+    from medseg_torch.cli import pretraining
+    from medseg_torch.data.nifti import write_nifti
+
+    rng = np.random.default_rng(3)
+    affine = np.diag([1.5, 1.5, 2.0, 1.0])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data", "abdomenCT")
+        os.makedirs(os.path.join(root, "imagesTr"))
+        entries = []
+        for i in range(4):
+            image = rng.normal(100.0, 80.0, size=CLI_PRETRAIN_VOLUME).astype(np.float32)
+            write_nifti(os.path.join(root, "imagesTr", f"ct{i}.nii.gz"), image, affine)
+            entries.append({"image": f"imagesTr/ct{i}.nii.gz"})
+        with open(os.path.join(root, "dataset.json"), "w") as f:
+            json.dump({"training": entries}, f)
+        argv = [os.path.join(tmp, "data"), "abdomenCT", os.path.join(tmp, "out"), str(N_CLASSES),
+                "1e-4", str(PRETRAIN_TEMP), "ranking", "--bf16", "--folds", "2", "--max-folds",
+                "1", "--max-iterations", "1", "--eval-num", "2", "--no-progress"]
+        args = pretraining.build_parser().parse_args(argv)
+        plot = pretraining.plot_loss_vs_time
+        artifact = ".png"
+        if importlib.util.find_spec("matplotlib") is None:
+            artifact = ".npy"
+            log("[pretrain-cli] matplotlib is not installed on this machine: in this phase only, "
+                "the loss-vs-time figure is replaced by an .npy file of its series")
+            pretraining.plot_loss_vs_time = lambda path, losses, times: np.save(
+                path[: -len(".png")] + artifact, np.stack([losses, times]))
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out_dirs = pretraining.main(argv)
+        finally:
+            pretraining.plot_loss_vs_time = plot
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        if len(out_dirs) != 1:
+            raise RuntimeError(f"pretraining CLI ran folds {out_dirs}")
+        steps = 0
+        for arc in pretraining.STAGES:
+            stage = os.path.join(out_dirs[0], pretraining.stage_prefix(args, arc))
+            for path in (os.path.join(stage, "best", "model.pt"),
+                         os.path.join(stage, "best", "train.pt"), stage + "_loss_vs_time" + artifact):
+                if not os.path.exists(path):
+                    raise RuntimeError(f"pretraining CLI did not write {path}")
+            with open(os.path.join(stage, "meta.json")) as f:
+                meta = json.load(f)
+            if meta.get("completed") != 1:
+                raise RuntimeError(f"pretraining CLI: stage {arc} not marked completed: {meta}")
+            steps = meta["step"]
+    log(f"[pretrain-cli] medseg_torch.cli.pretraining --bf16 on 2 of 4 CT volumes "
+        f"{'x'.join(map(str, CLI_PRETRAIN_VOLUME))} at 1.5x1.5x2 mm (one fold, one epoch per stage): "
+        f"{steps} steps in {seconds:.2f} s end to end, {steps / seconds:.3f} steps/s (host "
+        f"preprocessing, both stages, checkpoints) [{card}]; launches {launches}")
+    require_launched(launches, RECON_KERNELS, "pretraining CLI")
+    return launches
+
+
 def main() -> int:
     from medseg_torch.kernels import kernel_check
 
@@ -486,6 +762,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
     paths["train"] = phase_train(device, card)
+    torch.cuda.empty_cache()
+    phase_kernels(device, card, table, kernel_check.flat_cases, "flat-kernel")
+    paths.update(phase_pretrain(device, card))
+    paths["pretrain-flat"] = phase_pretrain_flat(device, card)
+    paths["pretrain-cli"] = phase_pretrain_cli(device, card)
     kernels = []
     for name, (src, tpu, _) in KERNELS.items():
         row = table[name]

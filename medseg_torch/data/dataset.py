@@ -1,11 +1,24 @@
-"""The Decathlon datalist (a copy of ``load_decathlon_datalist`` in
-``medseg/data/dataset.py``): parse a ``dataset.json`` list of {"image",
-"label"} entries (or bare image paths) into absolute paths."""
+"""Dataset handling (a copy of ``medseg/data/dataset.py`` without
+``DecathlonDataset``).
+
+- ``load_decathlon_datalist``: parse a ``dataset.json`` list of {"image",
+  "label"} entries (or bare image paths) into absolute paths;
+- ``kfold_split``: sklearn ``KFold(shuffle=False)``, contiguous folds;
+- ``partition_dataset_indices`` / ``CrossValidationFolds``: MONAI's
+  ``CrossValidation`` (a seeded shuffle, then strided partitions);
+- ``ListDataset`` / ``CacheDataset``: map-style datasets applying a
+  transform (with ``cache_rate > 0`` the deterministic prefix is computed
+  once);
+- ``decollate_batch``: a batched dict back into per-sample dicts.
+"""
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Callable, Sequence
+
+import numpy as np
 
 
 def load_decathlon_datalist(
@@ -27,5 +40,116 @@ def load_decathlon_datalist(
         for key in ("image", "label"):
             if key in item and not os.path.isabs(item[key]):
                 item[key] = os.path.join(base, item[key])
+        out.append(item)
+    return out
+
+
+def kfold_split(n_items: int, n_splits: int = 5):
+    """sklearn KFold(shuffle=False) contract: contiguous folds, the first
+    ``n_items % n_splits`` folds one element larger. Yields (train, test)."""
+    indices = np.arange(n_items)
+    sizes = np.full(n_splits, n_items // n_splits, dtype=int)
+    sizes[: n_items % n_splits] += 1
+    current = 0
+    for size in sizes:
+        test = indices[current : current + size]
+        train = np.concatenate([indices[:current], indices[current + size :]])
+        yield train, test
+        current += size
+
+
+def partition_dataset_indices(
+    n: int, num_partitions: int, shuffle: bool = True, seed: int = 0
+) -> list[np.ndarray]:
+    """MONAI 0.6 ``partition_dataset`` rule: optionally shuffle the indices
+    with ``np.random.RandomState(seed)``, then partition i is the strided
+    slice ``indices[i::num_partitions]``."""
+    indices = np.arange(n)
+    if shuffle:
+        rs = np.random.RandomState(seed)
+        rs.shuffle(indices)
+    return [indices[i::num_partitions] for i in range(num_partitions)]
+
+
+class CrossValidationFolds:
+    """MONAI ``CrossValidation``: seeded shuffle, then strided partition into
+    ``nfolds``; ``get_datalist(folds)`` concatenates the folds in order."""
+
+    def __init__(self, datalist: Sequence[dict], nfolds: int = 5, seed: int = 12345):
+        self.datalist = list(datalist)
+        self.nfolds = nfolds
+        self.partitions = [
+            list(p)
+            for p in partition_dataset_indices(len(self.datalist), nfolds, shuffle=True, seed=seed)
+        ]
+
+    def get_datalist(self, folds) -> list[dict]:
+        if isinstance(folds, int):
+            folds = [folds]
+        out = []
+        for f in folds:
+            out.extend(self.datalist[i] for i in self.partitions[f])
+        return out
+
+
+class ListDataset:
+    """Map-style dataset: datalist entry -> transform(entry)."""
+
+    def __init__(self, data: Sequence[dict], transform: Callable | None = None):
+        self.data = list(data)
+        self.transform = transform
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, idx: int):
+        sample = dict(self.data[idx])
+        return self.transform(sample) if self.transform else sample
+
+
+class CacheDataset(ListDataset):
+    """With ``cache_rate=0.0`` (the reference's setting) a plain
+    ``ListDataset``; with > 0, ``cache_transform`` (the deterministic prefix)
+    runs once at construction for that fraction of the items and
+    ``transform`` (the random suffix) on every access."""
+
+    def __init__(
+        self,
+        data: Sequence[dict],
+        transform: Callable | None = None,
+        cache_rate: float = 0.0,
+        cache_transform: Callable | None = None,
+    ):
+        super().__init__(data, transform)
+        self.cache_transform = cache_transform
+        n_cache = int(len(self.data) * cache_rate) if cache_transform else 0
+        self._cache: dict[int, dict] = {}
+        for i in range(n_cache):
+            self._cache[i] = cache_transform(dict(self.data[i]))
+
+    def __getitem__(self, idx: int):
+        if idx in self._cache:
+            sample = dict(self._cache[idx])
+            return self.transform(sample) if self.transform else sample
+        sample = dict(self.data[idx])
+        if self.cache_transform:
+            sample = self.cache_transform(sample)
+        return self.transform(sample) if self.transform else sample
+
+
+def decollate_batch(batch: dict) -> list[dict]:
+    """Split a batched dict into per-sample dicts (MONAI ``decollate_batch``)."""
+    sizes = {len(v) for v in batch.values() if isinstance(v, (np.ndarray, list))}
+    if not sizes:
+        return [batch]
+    n = max(sizes)
+    out = []
+    for i in range(n):
+        item = {}
+        for k, v in batch.items():
+            if isinstance(v, (np.ndarray, list)) and len(v) == n:
+                item[k] = v[i]
+            else:
+                item[k] = v
         out.append(item)
     return out

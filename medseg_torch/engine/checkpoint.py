@@ -1,5 +1,5 @@
-"""The weight bridge (JAX package params -> the port's ``state_dict``) and
-the load of a reference ``.pth``.
+"""The weight bridge (JAX package params -> the port's ``state_dict``), the
+train-state ``CheckpointManager`` and the load of a reference ``.pth``.
 
 ``state_dict_from_flax`` maps the flax parameter tree of
 ``medseg.models.unetr.UNETR`` (a nested dict of arrays) onto the MONAI-0.6
@@ -9,16 +9,19 @@ and that ``medseg_torch.models.unetr.UNETR`` carries, so
 array transforms invert that module's ``_conv_kernel`` / ``_convt_kernel`` /
 ``_linear_kernel``.
 
-``load_torch_checkpoint`` loads a MONAI-schema ``.pth``/``.pt`` into a port
-model with the JAX package's rules (``convert_torch_state_dict`` +
+``load_torch_checkpoint`` loads a MONAI-schema ``.pth``/``.pt`` (or the best
+model of a ``CheckpointManager`` directory) into a port model with the JAX
+package's rules (``convert_torch_state_dict`` +
 ``merge_params``): a key the schema does not know raises, a key the file
 lacks keeps the model's value, a shape that differs raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
 from typing import Any
 
 import numpy as np
@@ -85,15 +88,109 @@ def state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+MODEL_FILE = "model.pt"  # the model's state_dict, loadable on its own
+TRAIN_FILE = "train.pt"  # the optimizer's state_dict, the step, the generator's state
+
+
+class CheckpointManager:
+    """Best/latest checkpoints of the full train state (counterpart of the
+    JAX package's orbax ``CheckpointManager``).
+
+    A checkpoint ``name`` is a directory ``<directory>/<name>/`` of two
+    ``torch.save`` files: ``model.pt`` (the model's ``state_dict``, a
+    MONAI-schema state_dict that ``load_torch_checkpoint`` reads) and
+    ``train.pt`` (the optimizer's ``state_dict``, the step, the generator's
+    state). Saves are synchronous: each is written beside the old one and
+    renamed over it, so a crash leaves the old or the new checkpoint, never
+    half of one. A "best" save writes the ``meta.json`` sidecar (the step and
+    the metrics) after its files are in place. ``restore`` loads into the
+    given state in place and returns it.
+    """
+
+    def __init__(self, directory: str) -> None:
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.directory, "meta.json")
+
+    def save(self, state, *, metrics: dict[str, float] | None = None, name: str = "best",
+             block: bool = False) -> str:
+        """Save the full train state under ``name``. ``block`` is accepted for
+        the JAX signature: every save has committed when this returns."""
+        path = os.path.join(self.directory, name)
+        tmp = f"{path}.tmp-{os.getpid()}"
+        old = f"{path}.old-{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        torch.save(state.model.state_dict(), os.path.join(tmp, MODEL_FILE))
+        torch.save({"optimizer": state.optimizer.state_dict(), "step": int(state.step),
+                    "generator": state.generator.get_state()}, os.path.join(tmp, TRAIN_FILE))
+        if os.path.isdir(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+        if name == "best":  # the sidecar tracks the best checkpoint only
+            meta = {"step": int(state.step)}
+            if metrics:
+                meta.update({k: float(v) for k, v in metrics.items()})
+            with open(self._meta_path(), "w") as f:
+                json.dump(meta, f)
+        return path
+
+    def exists(self, name: str = "best") -> bool:
+        return os.path.exists(os.path.join(self.directory, name, TRAIN_FILE))
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is in flight."""
+
+    def _train(self, name: str) -> dict:
+        return torch.load(os.path.join(self.directory, name, TRAIN_FILE), map_location="cpu")
+
+    def restore(self, state, *, name: str = "best"):
+        """Load the checkpoint into ``state`` (the same model and optimizer)."""
+        path = os.path.join(self.directory, name)
+        state.model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE), map_location="cpu"))
+        train = self._train(name)
+        state.optimizer.load_state_dict(train["optimizer"])
+        state.step = int(train["step"])
+        state.generator.set_state(train["generator"])
+        return state
+
+    def restore_freshest(self, state, *, prefer: str = "latest"):
+        """Restore whichever of "latest"/"best" has the greater step; ties go
+        to ``prefer`` (a crash after a scheduled "latest" save resumes from
+        it, not from an older best)."""
+        have = [n for n in ("best", "latest") if self.exists(n)]
+        if not have:
+            return state
+        if len(have) == 1:
+            return self.restore(state, name=have[0])
+        steps = {n: int(self._train(n)["step"]) for n in have}
+        if steps["latest"] == steps["best"]:
+            return self.restore(state, name=prefer)
+        return self.restore(state, name=max(steps, key=steps.get))
+
+    def metadata(self) -> dict:
+        if not os.path.exists(self._meta_path()):
+            return {}
+        with open(self._meta_path()) as f:
+            return json.load(f)
+
+
 def load_torch_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a reference ``.pth``/``.pt`` state_dict into ``model`` in place and
-    return it. A directory (an orbax checkpoint of the JAX package, or a
-    train-state checkpoint) raises NotImplementedError."""
+    """Load a reference ``.pth``/``.pt`` state_dict, or the "best" model of a
+    directory written by ``CheckpointManager``, into ``model`` in place and
+    return it. Any other directory (an orbax checkpoint of the JAX package)
+    raises NotImplementedError."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a checkpoint directory; the port loads .pth/.pt state_dicts only "
-            "(train-state and orbax checkpoints: ROADMAP.md Queue 1 item 7)"
-        )
+        best = os.path.join(path, "best", MODEL_FILE)
+        if not os.path.exists(best):
+            raise NotImplementedError(
+                f"{path} is not a checkpoint directory of medseg_torch's CheckpointManager "
+                f"(no best/{MODEL_FILE}); orbax checkpoints of the JAX package are not read "
+                "(ROADMAP.md Queue 1 item 7)"
+            )
+        path = best
     state_dict = torch.load(path, map_location="cpu")
     own = model.state_dict()
     merged = dict(own)

@@ -37,6 +37,21 @@ def adamw(params, learning_rate: float, weight_decay: float) -> torch.optim.Adam
     )
 
 
+def apply_gradients(state: TrainState) -> TrainState:
+    """One optimizer step over every parameter, as optax updates every leaf:
+    a parameter that no gradient reached (the decoder in the feat stage, the
+    frozen encoder in the recon stage) steps on a zero gradient, so weight
+    decay and the moments carried from earlier steps still move it, and every
+    parameter's step count advances with the state's. ``torch.optim.AdamW``
+    would skip a parameter whose ``.grad`` is None."""
+    for p in state.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step += 1
+    return state
+
+
 def create_train_state(
     model: nn.Module,
     *,

@@ -17,7 +17,7 @@ from typing import Callable, Iterable, Iterator
 import torch
 
 from medseg_torch.engine.evaluate import Validator
-from medseg_torch.engine.state import TrainState
+from medseg_torch.engine.state import TrainState, apply_gradients
 from medseg_torch.kernels.loss_of import dice_ce_fused, fused_loss_supported
 from medseg_torch.ops.losses import dice_ce_loss
 from medseg_torch.ops.sliding_window import SlidingWindowSpec
@@ -71,9 +71,7 @@ def make_train_step(
         loss = loss_fn(model, image, label)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, loss.detach()
+        return apply_gradients(state), loss.detach()
 
     return step
 

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "medseg_outhead_row": [_I] * 3 + [_P] * 10 + [_I] * 9 + [_P] * 4,
     # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
+    # device, bf16, co_tile, x, w, out, B, C, C_out, D, H, W, stream
+    "medseg_conv_flat": [_I] * 3 + [_P] * 3 + [_I] * 6 + [_P],
     # device, bf16, logits, labels, ce, inter, pred, ground, B, K, V, blocks, stream
     "medseg_dice_ce_sums": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _P],
     # device, bf16, logits, labels, ca, cb, cec, dlogits, B, K, V, blocks, stream

@@ -1,5 +1,6 @@
-"""The 3x3x3 conv of the training step through the kernels (counterpart of
-``medseg/kernels/conv3d.py``'s ``conv3x3x3_ofio`` custom VJP).
+"""The 3x3x3 convs of the training step through the kernels (counterpart of
+``medseg/kernels/conv3d.py``'s ``conv3x3x3_ofio`` and ``conv3x3x3`` custom
+VJPs).
 
 ``Conv3x3x3Fn`` is a stride-1, zero-padded 3x3x3 conv without bias:
 
@@ -10,20 +11,36 @@
   only when the input needs it; the filter gradient is K6
   (``conv_of.conv3x3x3_wgrad_of``, fp32), rounded to the weight's dtype.
 
-``train_route`` is the shape predicate: the same on CPU (where the wrappers
+``train_route`` is its shape predicate: the same on CPU (where the wrappers
 run their plain versions) and on the card (where a width the kernels lack
 raises). NCDHW needs no block-level layout trick, so the Function wraps each
 conv.
+
+``FlatConvFn`` is the flat per-conv route, taken by the convs that
+``train_route`` declines where ``flat_route`` accepts them (off unless
+``MEDSEG_PALLAS_CONV=1``, as in the JAX package):
+
+- forward: K9 (``conv_flat.conv3x3x3_flat``), output fp32;
+- backward: what the JAX route's backward computes in XLA, outside any
+  kernel: the fp32 conv's gradients on fp32 casts of x and the weight
+  (library convs here), cast back to the operands' dtypes.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from medseg_torch.kernels import conv_of
+from medseg_torch.kernels import conv_flat, conv_of
 
 OF_MIN_HW = 48 * 48  # smallest H*W routed to the kernels (the full-res and 48^3 stages)
 MAX_C = 64  # widest input or output routed
+# the flat per-conv route, read once from the JAX package's variable (default
+# off); tests set the module constant
+PALLAS_PER_CONV = os.environ.get("MEDSEG_PALLAS_CONV", "0") == "1"
+LANE = 128  # the TPU lane width, in which the JAX predicate is written
+FLAT_MIN_W = 48  # narrowest W the flat route takes (the JAX predicate's)
 
 
 def train_route(x_shape, c_out: int) -> bool:
@@ -31,6 +48,41 @@ def train_route(x_shape, c_out: int) -> bool:
     channels runs through ``Conv3x3x3Fn``."""
     _, c, _, h, w = x_shape
     return h * w >= OF_MIN_HW and c <= MAX_C and c_out <= MAX_C
+
+
+def _wp(w: int) -> int:
+    """Lanes per y-row of the JAX kernel's flat layout (its VMEM budget and
+    lane occupancy are written in them)."""
+    if w + 2 <= 64:
+        return 64
+    return -(-(w + 2) // LANE) * LANE
+
+
+def flat_supported(x_shape, c_out: int) -> bool:
+    """The JAX package's ``flat_supported`` on an NCDHW shape, its terms
+    kept (widths, W >= 48, a channel-reducing conv or a square one at high
+    lane occupancy, the 64 MiB VMEM budget), so that one setting routes the
+    same convs in both packages."""
+    _, c, _, h, w = x_shape
+    if c % 8 != 0 or c > 128 or c_out > 128 or c_out % 8 != 0:
+        return False
+    if w < FLAT_MIN_W:
+        return False
+    wp = _wp(w)
+    occupancy = (w + 2) / wp
+    if not (c > c_out or (c == c_out and occupancy >= 0.7)):
+        return False
+    lanes = (h + 2) * wp
+    row_bytes = c * lanes * 2
+    patch_bytes = 9 * c * h * wp * 2
+    out_bytes = 3 * c_out * h * wp * 4
+    return row_bytes * 6 + patch_bytes + out_bytes < 64 * 1024 * 1024
+
+
+def flat_route(x_shape, c_out: int) -> bool:
+    """Whether a 3x3x3 conv runs through ``FlatConvFn``: the route is on,
+    the shape is one the flat kernel takes, and ``train_route`` declines it."""
+    return PALLAS_PER_CONV and flat_supported(x_shape, c_out) and not train_route(x_shape, c_out)
 
 
 class Conv3x3x3Fn(torch.autograd.Function):
@@ -52,8 +104,32 @@ class Conv3x3x3Fn(torch.autograd.Function):
         return dx, dw
 
 
+class FlatConvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return conv_flat.conv3x3x3_flat(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(x.shape, weight.float(), g, padding=1).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv3d_weight(x.float(), weight.shape, g, padding=1)
+            dw = dw.to(weight.dtype)
+        return dx, dw
+
+
 def conv3x3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Same-pad 3x3x3 conv of x (B, C, D, H, W) with weight (CO, C, 3, 3, 3),
     both in the compute dtype; the output is in that dtype (fp32 sums, one
     rounding)."""
     return Conv3x3x3Fn.apply(x.contiguous(), weight.contiguous())
+
+
+def conv3x3x3_flat(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The same conv through ``FlatConvFn``: output fp32."""
+    return FlatConvFn.apply(x.contiguous(), weight.contiguous())

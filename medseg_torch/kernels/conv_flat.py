@@ -1,0 +1,64 @@
+"""The flat per-conv route's kernel (K9, counterpart of
+``medseg/kernels/conv3d.py``'s ``conv3x3x3_flat``).
+
+``conv3x3x3_flat(x, weight)``: a plain 3x3x3 stride-1 zero-padded conv of x
+(B, C, D, H, W) with weight (CO, C, 3, 3, 3), both in the compute dtype
+(fp32 or bf16), summed in fp32 and returned in fp32 (B, CO, D, H, W). No
+prologue, residual tap or statistics. The kernel (``csrc/conv_flat.cu``)
+takes C a multiple of 8 up to 128 and CO a multiple of 16 up to 128 in one
+launch; it raises on any other width. On a CPU tensor the wrapper runs the
+plain version; ``launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from medseg_torch.kernels import _build, conv_of  # its helpers, used at call time
+
+MAX_C = 128  # widest input or output the kernel takes
+C_ALIGN = 8  # input channels per staged chunk (FCC of csrc/conv_flat.cu)
+CO_TILES = (32, 16)  # output channels per block (the kernel's instantiations)
+
+
+def conv3x3x3_flat_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """fp32 math on the fp32 casts of the operands."""
+    return F.conv3d(x.float(), weight.float(), padding=1)
+
+
+def conv3x3x3_flat(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K9. Returns the fp32 conv of x with weight (see the module docstring)."""
+    if x.device.type == "cpu":
+        return conv3x3x3_flat_plain(x, weight)
+    dev = conv_of._device_of(x)
+    dt = x.dtype
+    if dt not in conv_of._DTYPES:
+        raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
+    bsz, c, d, h, w = x.shape
+    c_out = weight.shape[0]
+    if c % C_ALIGN or c > MAX_C:
+        raise ValueError(f"C={c}: the flat conv kernel takes C a multiple of {C_ALIGN} up to {MAX_C}")
+    tile = next((t for t in CO_TILES if c_out % t == 0), None)
+    if tile is None or c_out > MAX_C:
+        raise ValueError(f"C_out={c_out}: the flat conv kernel takes C_out a multiple of "
+                         f"{CO_TILES[-1]} up to {MAX_C}")
+    conv_of._check(x, "x", (bsz, c, d, h, w), dt, dev)
+    conv_of._check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
+    out = torch.empty((bsz, c_out, d, h, w), dtype=torch.float32, device=dev)
+    err = _build.lib().medseg_conv_flat(
+        dev.index, int(dt == torch.bfloat16), tile, x.data_ptr(), weight.data_ptr(), out.data_ptr(),
+        bsz, c, c_out, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "flat conv kernel")
+    conv3x3x3_flat.launches += 1
+    return out
+
+
+KERNELS = (conv3x3x3_flat,)
+conv3x3x3_flat.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

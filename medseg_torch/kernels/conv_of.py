@@ -21,7 +21,8 @@ Six wrappers, each beside its plain PyTorch version in this module:
 
 K1 is instantiated for 16 and 32 output channels; a 64-wide conv (the data
 gradient of dec3.conv1, 32 -> 64) runs as two 32-wide launches over the
-halves of its weight, concatenated.
+halves of its weight, concatenated. K6 takes a 64-wide cotangent (dec3.conv2
+of a feature-size-32 UNETR) the same way, as two launches over its halves.
 
 Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
 weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
@@ -374,8 +375,11 @@ def conv3x3x3_wgrad_of(x, g):
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     bsz, c, d, h, w = x.shape
     c_out = g.shape[1]
+    if c_out == SPLIT_C_OUT:  # the rows of dW of each half of the cotangent
+        return torch.cat([conv3x3x3_wgrad_of(x, half.contiguous()) for half in g.chunk(2, dim=1)])
     if c_out not in WGRAD_C_OUT:
-        raise ValueError(f"C_out={c_out}: the wgrad kernel is built for C_out in {WGRAD_C_OUT}")
+        raise ValueError(f"C_out={c_out}: the wgrad kernel is built for C_out in {WGRAD_C_OUT} "
+                         f"(and {SPLIT_C_OUT} as two launches)")
     _check(x, "x", (bsz, c, d, h, w), dt, dev)
     _check(g, "g", (bsz, c_out, d, h, w), dt, dev)
     chunks = -(-c // WGRAD_CC)

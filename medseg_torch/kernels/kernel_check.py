@@ -5,7 +5,9 @@ at the shapes the fused forward gives it (``full``^3 and ``full/2``^3
 volumes, ``fs`` = feature_size; K4 on one z-row batch of six windows, fp32
 and bf16 accumulators); ``brats_cases`` does the same at the BraTS window
 (128^3, four input channels, 8 padded classes); ``training_cases`` for the
-kernels the training step adds (K6, K1's data gradient, K7 and K8).
+kernels the training step adds (K6, K1's data gradient, K7 and K8);
+``flat_cases`` for K9, the flat per-conv route of the pretraining path
+(fp32 output, held to the same output tolerances as K1).
 ``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
 and the plain version, and returns the largest errors, the least time the
 card could take for the work (``bound_ms``) and, when timed, the kernel's,
@@ -30,7 +32,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from medseg_torch.kernels import conv_of, loss_of
+from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
 OUT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STATS_TOL = 1e-3
@@ -299,6 +301,28 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
         f"dice_ce_bwd {n_classes} classes @{batch}x{full}^3", loss_of.dice_ce_bwd,
         loss_of.dice_ce_bwd_plain, (logits, labels, *coefs), flops=13.0 * n, fp32_math=True,
     ))
+    return cases
+
+
+def flat_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) -> list[Case]:
+    """K9 at the shape the flat route gives it on the pretraining path
+    (decoder3.conv1 of a feature-size-32 UNETR, 128 -> 64 at ``full/2``^3,
+    the concat of the upsample and the enc2 skip) and at the JAX predicate's
+    table shapes, 32 -> 16 at ``full``^3 and 64 -> 32 at ``full/2``^3."""
+    g = torch.Generator().manual_seed(3)
+    half = full // 2
+    cases = []
+    for name, c_in, c_out, s in (
+        (f"dec3.conv1 128->64 (feature size 32) @{batch}x{half}^3", 128, 64, half),
+        (f"flat 32->16 @{batch}x{full}^3", 32, 16, full),
+        (f"flat 64->32 @{batch}x{half}^3", 64, 32, half),
+    ):
+        x = torch.randn((batch, c_in, s, s, s), generator=g).to(device=device, dtype=dtype)
+        w = (torch.randn((c_out, c_in, 3, 3, 3), generator=g) * (27 * c_in) ** -0.5).to(
+            device=device, dtype=dtype)
+        lib, lib_cl = _conv_library(x, w)
+        cases.append(Case(name, conv_flat.conv3x3x3_flat, conv_flat.conv3x3x3_flat_plain, (x, w),
+                          flops=_conv_flops(x, c_out), library=lib, library_cl=lib_cl))
     return cases
 
 

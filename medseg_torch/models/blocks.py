@@ -14,7 +14,9 @@ promoted type of input and parameters), norms compute fp32 statistics and
 return their input's dtype. With gradients enabled, a 3x3x3 conv whose shape
 ``kernels.conv3d.train_route`` accepts runs through ``Conv3x3x3Fn`` (K1
 forward and data gradient, K6 filter gradient), its output rounded to the
-compute dtype before the bias, as the JAX routed conv does.
+compute dtype before the bias, as the JAX routed conv does. With or without
+gradients, a 3x3x3 conv that ``kernels.conv3d.flat_route`` accepts runs
+through ``FlatConvFn`` (K9 forward, fp32 out), rounded the same way.
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ class Conv3d(nn.Module):
         c_out, _, k = weight.shape[:3]
         if k == 3 and torch.is_grad_enabled() and conv3d.train_route(x.shape, c_out):
             return conv3d.conv3x3x3(x, weight) + bias.view(1, -1, 1, 1, 1)
+        if k == 3 and conv3d.flat_route(x.shape, c_out):
+            return conv3d.conv3x3x3_flat(x, weight).to(dt) + bias.view(1, -1, 1, 1, 1)
         return F.conv3d(x, weight, bias, padding=self.conv.padding)
 
 

@@ -116,27 +116,41 @@ class UNETR(nn.Module):
         b = tokens.shape[0]
         return tokens.reshape(b, *self.feat_size, self.hidden_size).permute(0, 4, 1, 2, 3)
 
+    @staticmethod
+    def _stage(module, remat: bool, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
+    def _encode(self, x_in: torch.Tensor):
+        x, hidden_states = self.vit(x_in)
+        q = self.num_layers // 4
+        low, stage = self.remat_low, self._stage
+        enc1 = stage(self.encoder1, self.remat_all, x_in)
+        enc2 = stage(self.encoder2, low, self.proj_feat(hidden_states[1 * q]))
+        enc3 = stage(self.encoder3, low, self.proj_feat(hidden_states[2 * q]))
+        enc4 = stage(self.encoder4, low, self.proj_feat(hidden_states[3 * q]))
+        return x, enc1, enc2, enc3, enc4
+
     def forward(
         self,
         x_in: torch.Tensor,
         *,
+        freeze_encoder: bool = False,
         return_encoder_features: bool = True,
     ):
         """x_in: (B, C, D, H, W). Returns ``(enc4, logits)`` like the
         reference's local variant, or logits only with
-        ``return_encoder_features=False``."""
-        def stage(module, remat, *args):
-            if remat and torch.is_grad_enabled():
-                return checkpoint(module, *args, use_reentrant=False)
-            return module(*args)
-
-        low, full = self.remat_low, self.remat_all
-        x, hidden_states = self.vit(x_in)
-        q = self.num_layers // 4
-        enc1 = stage(self.encoder1, full, x_in)
-        enc2 = stage(self.encoder2, low, self.proj_feat(hidden_states[1 * q]))
-        enc3 = stage(self.encoder3, low, self.proj_feat(hidden_states[2 * q]))
-        enc4 = stage(self.encoder4, low, self.proj_feat(hidden_states[3 * q]))
+        ``return_encoder_features=False``. ``freeze_encoder`` stops the
+        gradient at the ViT output and the encoder taps (the six taps the
+        JAX forward stops: x, enc1..enc4 and dec4); they are computed without
+        autograd, which gives the same values and keeps no activations."""
+        if freeze_encoder:
+            with torch.no_grad():
+                x, enc1, enc2, enc3, enc4 = self._encode(x_in)
+        else:
+            x, enc1, enc2, enc3, enc4 = self._encode(x_in)
+        low, full, stage = self.remat_low, self.remat_all, self._stage
         dec3 = stage(self.decoder5, low, self.proj_feat(x), enc4)
         dec2 = stage(self.decoder4, low, dec3, enc3)
         dec1 = stage(self.decoder3, full, dec2, enc2)
@@ -145,6 +159,16 @@ class UNETR(nn.Module):
         if return_encoder_features:
             return enc4, logits
         return logits
+
+    def encoder4_features(self, x_in: torch.Tensor) -> torch.Tensor:
+        """enc4 alone: the ViT blocks up to the one whose output enc4 taps,
+        then encoder4; the same values and gradients as ``forward``'s enc4,
+        without the blocks after the tap, the final norm, the other
+        encoders and the decoder (all that the feat stage's loss does not
+        read)."""
+        depth = 3 * (self.num_layers // 4) + 1
+        tokens = self.vit.block_outputs(x_in, depth)[-1]
+        return self._stage(self.encoder4, self.remat_low, self.proj_feat(tokens))
 
 
 @torch.no_grad()

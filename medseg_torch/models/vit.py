@@ -171,13 +171,18 @@ class ViT(nn.Module):
         )
         self.norm = nn.LayerNorm(hidden_size, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    def block_outputs(self, x: torch.Tensor, depth: int | None = None) -> list[torch.Tensor]:
+        """The outputs of the first ``depth`` blocks (all by default)."""
         tokens = self.patch_embedding(x)
         hidden_states = []
-        for blk in self.blocks:
+        for blk in self.blocks[:depth]:
             if self.remat and torch.is_grad_enabled():
                 tokens = checkpoint(blk, tokens, use_reentrant=False)
             else:
                 tokens = blk(tokens)
             hidden_states.append(tokens)
-        return layer_norm(self.norm, tokens, self.dtype), hidden_states
+        return hidden_states
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        hidden_states = self.block_outputs(x)
+        return layer_norm(self.norm, hidden_states[-1], self.dtype), hidden_states

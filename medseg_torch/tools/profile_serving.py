@@ -46,6 +46,7 @@ _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),
     ("K7 dice_ce_sums", re.compile(r"dice_ce_sums_kernel")),
     ("K8 dice_ce_bwd", re.compile(r"dice_ce_bwd_kernel")),
+    ("K9 conv3x3x3_flat", re.compile(r"conv_flat_kernel")),
     ("SDPA attention", re.compile(r"fmha|flash|attention", re.I)),
     ("elementwise", re.compile(r"elementwise_kernel")),
     ("reduction", re.compile(r"reduce_kernel")),

@@ -44,6 +44,9 @@ def test_port_imports_no_jax_flax_or_triton():
         "medseg_torch.config", "medseg_torch.data.nifti", "medseg_torch.data.dataset",
         "medseg_torch.data.transforms", "medseg_torch.data.pipelines",
         "medseg_torch.utils.profiling", "medseg_torch.cli.common", "medseg_torch.cli.infer",
+        "medseg_torch.ops.ranking", "medseg_torch.kernels.conv_flat", "medseg_torch.engine.pretrain",
+        "medseg_torch.data.sampling", "medseg_torch.data.loader", "medseg_torch.utils.artifacts",
+        "medseg_torch.cli.pretraining", "medseg_torch.tools.profile_pretrain",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"

@@ -8,14 +8,15 @@ there with:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
 Small shapes (2 x 16^3 and 8^3 volumes); ``chip_smoke.py`` repeats the
-comparisons at the serving path's and the training step's full shapes. Tolerances are those of
+comparisons at the serving path's, the training step's and the pretraining
+path's full shapes. Tolerances are those of
 ``medseg_torch.kernels.kernel_check``.
 """
 
 import pytest
 import torch
 
-from medseg_torch.kernels import conv_of, kernel_check, loss_of
+from medseg_torch.kernels import conv_flat, conv_of, kernel_check, loss_of
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,70 @@ def test_training_kernels_match_plain(device, dtype):
     results = [kernel_check.run_case(case, dtype) for case in cases]
     bad = [r for r in results if not r["ok"]]
     assert not bad, bad
+
+
+@DTYPES
+def test_flat_kernel_matches_plain(device, dtype):
+    """K9 at the flat route's shape and the JAX table's, cut to 16^3 and 8^3."""
+    cases = kernel_check.flat_cases(device, dtype, batch=2, full=16)
+    conv_flat.reset_launches()
+    results = [kernel_check.run_case(case, dtype) for case in cases]
+    bad = [r for r in results if not r["ok"]]
+    assert not bad, bad
+    assert conv_flat.conv3x3x3_flat.launches == len(cases)
+
+
+def test_flat_kernel_raises_on_what_it_lacks(device):
+    x = torch.randn(1, 16, 4, 8, 8, device=device)
+    w = torch.randn(16, 16, 3, 3, 3, device=device)
+    with pytest.raises(ValueError, match="C_out"):
+        conv_flat.conv3x3x3_flat(x, torch.randn(8, 16, 3, 3, 3, device=device))
+    with pytest.raises(ValueError, match="C=12"):
+        conv_flat.conv3x3x3_flat(x[:, :12].contiguous(), w[:, :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_flat.conv3x3x3_flat(x.transpose(3, 4), w)
+    with pytest.raises(ValueError, match="dtype"):
+        conv_flat.conv3x3x3_flat(x.half(), w.half())
+
+
+def test_flat_route_step_launches_k9(device):
+    """A tiny UNETR's recon-stage loss with the flat route forced on (the
+    width threshold lowered): K9 runs the channel-reducing convs, forward and
+    remat recompute, and the gradients match the same model without any
+    route (cuDNN convs)."""
+    import copy
+
+    from medseg_torch.engine.pretrain import make_pretrain_loss
+    from medseg_torch.kernels import conv3d
+    from medseg_torch.models.unetr import UNETR, init_weights
+
+    g = torch.Generator().manual_seed(2)
+    model = init_weights(UNETR(in_channels=1, out_channels=3, img_size=(32, 32, 32),
+                               feature_size=16, hidden_size=24, mlp_dim=48, num_heads=4,
+                               num_layers=4, remat=True), g)
+    x = torch.randn((4, 1, 32, 32, 32), generator=g).to(device)
+    idx = torch.tensor([1, 9, 17, 25], device=device)
+    saved = conv3d.PALLAS_PER_CONV, conv3d.FLAT_MIN_W, conv3d.OF_MIN_HW
+    grads, losses = [], []
+    try:
+        for routed in (True, False):
+            conv3d.PALLAS_PER_CONV, conv3d.FLAT_MIN_W = routed, 16
+            conv3d.OF_MIN_HW = float("inf")  # K1 declines: the flat route's convs only
+            m = copy.deepcopy(model).to(device)
+            conv_flat.reset_launches()
+            loss = make_pretrain_loss(m, update_arc="recon", loss_type="ranking",
+                                      num_partitions=4, temperature=0.1)(x, idx, 0)
+            loss.backward()
+            # decoder2.conv1 (32 -> 16 at 32^3) and decoder3.conv1 (64 -> 32 at 16^3), x2
+            assert conv_flat.conv3x3x3_flat.launches == (4 if routed else 0)
+            losses.append(loss.item())
+            grads.append({n: p.grad for n, p in m.named_parameters() if p.grad is not None})
+    finally:
+        conv3d.PALLAS_PER_CONV, conv3d.FLAT_MIN_W, conv3d.OF_MIN_HW = saved
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    num = sum((grads[0][n] - grads[1][n]).square().sum() for n in grads[1])
+    den = sum(grads[1][n].square().sum() for n in grads[1])
+    assert (num / den).sqrt().item() < 1e-3
 
 
 def test_training_kernels_count_their_launches(device):
