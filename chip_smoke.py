@@ -21,13 +21,16 @@ on failure:
 2. build: the kernel library, timed;
 3. every serving kernel against its plain PyTorch version at the path's
    shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators), then at
-   the BraTS window (128^3, four channels), with errors and CUDA-event times;
+   the BraTS window (128^3, four channels), with errors, CUDA-event times and
+   the route each case took (K1 and K6: the tensor cores for bf16 with C_in
+   a multiple of 16, the CUDA cores otherwise);
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
    one batch of four 96^3 windows;
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
-   timed run each, whose kernel launches are counted: 50 K4 launches);
+   timed run each, whose kernel launches are counted: 50 K4 launches, K1 on
+   the tensor cores);
 6. config 8: a small four-channel volume against the plain fp32 forward,
    then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched);
 7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
@@ -39,7 +42,7 @@ on failure:
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
    whose losses must be finite and fall and whose kernel launches are
-   counted;
+   counted (K1 and K6 on the tensor cores);
 10. flat-kernel: K9 against its plain version at the flat route's shape
     (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed;
 11. pretrain: ranking pretraining of UNETR-B/16 (bf16, remat) through
@@ -47,8 +50,8 @@ on failure:
     crops: per stage (feat, then recon on the same state) the loss and
     gradients against the fp32 module without kernels, one ranking step on
     each axis and one contrastive step (finite losses; recon launches K1 and
-    K6 and leaves the ViT's gradients 0, feat launches neither), then one
-    warm and 5 timed steps (ms/step, peak memory);
+    K6, on the tensor cores, and leaves the ViT's gradients 0, feat launches
+    neither), then one warm and 5 timed steps (ms/step, peak memory);
 12. pretrain-flat: the recon step of a feature-size-32 UNETR with the flat
     per-conv route on: decoder3.conv1 through K9 (2 launches per step, its
     forward and the remat recompute), loss and gradients against the fp32
@@ -57,8 +60,9 @@ on failure:
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
     both stages' checkpoints and loss-vs-time artifacts, steps/s.
 
-The line before the last is the JSON kernel table; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the JSON kernel table (K1 and K6 with the
+launches of their tensor-core route beside all their launches); the last
+line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ import numpy as np
 import torch
 
 KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of its time)
-    "conv3x3x3_of": ("medseg_torch/kernels/csrc/conv_of.cu", "medseg/kernels/conv_of.py:761",
+    "conv3x3x3_of": ("medseg_torch/kernels/csrc/conv_tc.cu", "medseg/kernels/conv_of.py:761",
                      "enc1.conv2 16->16 affine @4x96^3"),
     "conv3x3x3_of_cat2": ("medseg_torch/kernels/csrc/conv_of.cu",
                           "medseg/kernels/conv_of.py:1044", "dec3.conv1 (32+32)->32 @4x48^3"),
@@ -87,7 +91,7 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
                    "out head 16->16 scaled @4x96^3"),
     "outhead_row_of": ("medseg_torch/kernels/csrc/outhead_row_of.cu",
                        "medseg/kernels/conv_of.py:1596", "out head row 16->16 acc bfloat16 @6x96^3"),
-    "conv3x3x3_wgrad_of": ("medseg_torch/kernels/csrc/wgrad_of.cu",
+    "conv3x3x3_wgrad_of": ("medseg_torch/kernels/csrc/wgrad_tc.cu",
                            "medseg/kernels/conv_of.py:914", "wgrad enc1.conv2 16->16 @4x96^3"),
     "dice_ce_sums": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:133",
                      "dice_ce_sums 14 classes @4x96^3"),
@@ -96,6 +100,12 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
     "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_flat.cu", "medseg/kernels/conv3d.py:134",
                        "dec3.conv1 128->64 (feature size 32) @4x48^3"),
 }
+# K1 and K6 have a second route, on the CUDA cores (fp32, C_in of 1 or 4); the
+# timed bf16 case above takes the tensor cores. "<name>[tc]" counts the
+# launches that took the tensor-core route
+CUDA_CORE_SOURCES = {"conv3x3x3_of": "medseg_torch/kernels/csrc/conv_of.cu",
+                     "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu"}
+K1_TC, K6_TC = "conv3x3x3_of[tc]", "conv3x3x3_wgrad_of[tc]"
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
 # the training step, bf16 through the kernels vs the fp32 module without them
 # (same weights and batch): relative error of the loss and relative L2 of all
@@ -107,7 +117,8 @@ TRAIN_STEPS = 10
 TRAIN_BATCH, CROP, N_CLASSES = 4, 96, 14  # BASELINE config 5
 ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
-TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd")
+TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
+                 K6_TC)
 CONFIG4_K4_LAUNCHES = 50  # 10 d-starts x 5 groups of 2 h-rows (3 w-windows each)
 # each kernel's launches come from the path that is its home
 HOME_PATH = {"outhead_of": "brats", "conv3x3x3_wgrad_of": "train", "dice_ce_sums": "train",
@@ -125,7 +136,7 @@ PRETRAIN_TEMP, PRETRAIN_PARTITIONS = 0.1, 4
 PRETRAIN_LOSS_REL_BOUND = 2e-2
 PRETRAIN_GRAD_REL_L2_BOUND = 3e-1
 PRETRAIN_TIMED_STEPS = 5
-RECON_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of")
+RECON_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", K1_TC, K6_TC)
 FLAT_LAUNCHES_PER_STEP = 2  # decoder3.conv1's forward and its recompute under remat
 CLI_PRETRAIN_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: ~192^3 after respacing
 
@@ -162,10 +173,15 @@ def phase_build(card: str) -> None:
 
 
 def all_launches() -> dict:
+    """Launches of each kernel, and ``<name>[tc]`` those of K1 and K6 that
+    took the tensor-core route."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
-    return {fn.__name__: fn.launches
-            for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
+    counts = {fn.__name__: fn.launches
+              for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
+    counts[K1_TC] = conv_of.conv3x3x3_of.tc_launches
+    counts[K6_TC] = conv_of.conv3x3x3_wgrad_of.tc_launches
+    return counts
 
 
 def reset_launches() -> None:
@@ -185,17 +201,22 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str) -> None:
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases_fn(device, dtype):
+            tc_before = getattr(case.kernel, "tc_launches", 0)
             r = kernel_check.run_case(case, dtype, timed=True)
+            tc = getattr(case.kernel, "tc_launches", 0) > tc_before
+            route = "tensor cores" if tc else "cuda cores"
             name = case.kernel.__name__
             entry = table.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
             if dtype == torch.bfloat16 and case.name == KERNELS[name][2]:
                 entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms", "library_cl_ms")})
+                entry["timed_route"] = route
             lib = "" if r["library_ms"] is None else f" library {r['library_ms']:8.3f} ms"
             if r["library_cl_ms"] is not None:
                 lib += f" (channels_last {r['library_cl_ms']:.3f})"
-            log(f"[{label}] {str(dtype)[6:]:8s} {case.name:44s} out_err {r['out_err']:.2e} "
+            log(f"[{label}] {str(dtype)[6:]:8s} {case.name:44s} {route:12s} "
+                f"out_err {r['out_err']:.2e} "
                 f"sums_err {r['stats_err']:.2e} kernel {r['ms']:8.3f} ms plain "
                 f"{r['plain_ms']:8.3f} ms{lib} bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
                 f"{'ok' if r['ok'] else 'FAIL'} [{card}]")
@@ -315,7 +336,7 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
             f"{300 / seconds:.1f} windows/s, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches "
             f"{launches[acc]}")
-        require_launched(launches[acc], ZROW_KERNELS, "config-4")
+        require_launched(launches[acc], ZROW_KERNELS + (K1_TC,), "config-4")
         if launches[acc]["outhead_row_of"] != CONFIG4_K4_LAUNCHES:
             raise RuntimeError(f"config 4: {launches[acc]['outhead_row_of']} K4 launches, "
                                f"expected {CONFIG4_K4_LAUNCHES}")
@@ -770,14 +791,23 @@ def main() -> int:
     kernels = []
     for name, (src, tpu, _) in KERNELS.items():
         row = table[name]
-        kernels.append({
+        home = paths[HOME_PATH.get(name, "serving")]
+        kernel = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": paths[HOME_PATH.get(name, "serving")][name],
+            "launches": home[name],
             "launches_by_path": {path: launches[name] for path, launches in paths.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
-        })
+        }
+        if name in CUDA_CORE_SOURCES:  # K1, K6: the launches of each of their two routes
+            tc = f"{name}[tc]"
+            kernel.update({
+                "cuda_core_source": CUDA_CORE_SOURCES[name], "timed_route": row["timed_route"],
+                "tc_launches": home[tc],
+                "tc_launches_by_path": {path: launches[tc] for path, launches in paths.items()},
+            })
+        kernels.append(kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,16 +19,24 @@ Six wrappers, each beside its plain PyTorch version in this module:
 - ``conv3x3x3_wgrad_of`` (K6): the filter gradient of a no-prologue 3x3x3
   conv, fp32.
 
-K1 is instantiated for 16 and 32 output channels; a 64-wide conv (the data
-gradient of dec3.conv1, 32 -> 64) runs as two 32-wide launches over the
-halves of its weight, concatenated. K6 takes a 64-wide cotangent (dec3.conv2
-of a feature-size-32 UNETR) the same way, as two launches over its halves.
+K1 and K6 have two routes each, picked by shape and dtype alone:
+
+- the tensor cores (``csrc/conv_tc.cu``, ``csrc/wgrad_tc.cu``): bf16
+  operands, C_in a multiple of 16 up to 64, C_out 16, 32 or 64 in one
+  launch (``tc_route``, ``wgrad_tc_route``); K1 in modes PLAIN and AFFINE,
+  with or without the residual tap. The wrapper packs K1's weights into
+  the kernel's layout (``pack_tc_weight``, ``pack_tc_wres``);
+- the CUDA cores (``csrc/conv_of.cu``, ``csrc/wgrad_of.cu``): every other
+  call (fp32 operands, C_in of 1 or 4). They are instantiated for 16 and 32
+  output channels; a 64-wide conv runs as two 32-wide launches over the
+  halves of its weight (K6: of its cotangent), concatenated.
 
 Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
 weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its CUDA kernel (``csrc/``) or raises. Each wrapper's ``launches``
-counts its kernel launches.
+counts its kernel launches, and ``tc_launches`` those of them that took the
+tensor-core route.
 """
 
 from __future__ import annotations
@@ -52,7 +60,57 @@ OUTHEAD_MAX_C = 64  # MAXC of csrc/outhead_of.cu
 OUTHEAD_ROW_MAX_C = 32  # largest MAXC of csrc/outhead_row_of.cu
 OUTHEAD_ROW_MAX_K = 32  # largest MAXK of csrc/outhead_row_of.cu
 OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu: windows per launch
+TC_SLICE = 16  # input channels per k-step of the tensor-core kernels
+TC_MAX_C = 64  # widest input the tensor-core kernels take (kernels.conv3d.MAX_C)
+TC_C_OUT = (16, 32, 64)  # output widths they are instantiated for, each one launch
+TC_TILE = (2, 8, 16)  # (z, y, x) voxel tile of a block of either
+WGRAD_TC_BLOCKS_PER_SM = 2  # K6 tile groups per SM (two blocks fit at C_out = 16)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def tc_route(c_in: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether a K1 call (modes plain and affine_leaky) of ``c_in`` ->
+    ``c_out`` channels in ``dtype`` runs on the tensor cores."""
+    return (dtype == torch.bfloat16 and c_in % TC_SLICE == 0 and 0 < c_in <= TC_MAX_C
+            and c_out in TC_C_OUT)
+
+
+def wgrad_tc_route(c: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether a K6 call (x of ``c`` channels, a cotangent of ``c_out``)
+    in ``dtype`` runs on the tensor cores."""
+    return tc_route(c, c_out, dtype)
+
+
+def tc_tiles(x_shape) -> int:
+    """Voxel tiles (``TC_TILE``, the ragged edge rounded up) of an (B, C, D,
+    H, W) volume."""
+    bsz, _, *vol = x_shape
+    n = bsz
+    for size, edge in zip(vol, TC_TILE):
+        n *= -(-size // edge)
+    return n
+
+
+def wgrad_tc_groups(x_shape, sms: int) -> int:
+    """Tile groups of K6's tensor-core route: blocks per 16-channel slice,
+    about ``WGRAD_TC_BLOCKS_PER_SM`` blocks per SM in all. Group ``k`` sums
+    tiles k, k + groups, ... into its own partial."""
+    slices = x_shape[1] // TC_SLICE
+    return max(1, min(tc_tiles(x_shape), -(-WGRAD_TC_BLOCKS_PER_SM * sms // slices)))
+
+
+def pack_tc_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(CO, C, 3, 3, 3) -> (C/16, 27, CO, 16): per 16-channel slice, per tap
+    (kz, ky, kx row-major), one row of the slice's 16 input channels per
+    output channel (the B operand rows of ``csrc/conv_tc.cu``)."""
+    c_out, c = weight.shape[:2]
+    return weight.reshape(c_out, c // TC_SLICE, TC_SLICE, 27).permute(1, 3, 0, 2).contiguous()
+
+
+def pack_tc_wres(wres: torch.Tensor) -> torch.Tensor:
+    """(CO, C, 1, 1, 1) -> (C/16, CO, 16), the residual tap's B rows."""
+    c_out, c = wres.shape[:2]
+    return wres.reshape(c_out, c // TC_SLICE, TC_SLICE).permute(1, 0, 2).contiguous()
 
 
 def _bc(t: torch.Tensor) -> torch.Tensor:
@@ -182,6 +240,8 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     if dt not in _DTYPES:
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     c_out, c = weight.shape[:2]
+    if mode in ("plain", "affine_leaky") and tc_route(c, c_out, dt):
+        return _launch_conv_tc(x0, weight, wres, affines)
     if c_out == SPLIT_C_OUT:
         wres_halves = (None, None) if wres is None else wres.chunk(2)
         halves = [
@@ -213,14 +273,8 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     for i, t in enumerate(affines):
         _check(t, f"affine {i}", (bsz, aff_width), torch.float32, dev)
         aff[i] = t
-    out = torch.empty((bsz, c_out, *vol), dtype=dt, device=dev)
-    s = torch.zeros((bsz, c_out), dtype=torch.float32, device=dev)
-    ss = torch.zeros_like(s)
-    res = rs = rss = None
-    if wres is not None:
-        res = torch.empty_like(out)
-        rs = torch.zeros_like(s)
-        rss = torch.zeros_like(s)
+    outs = _conv_outputs((bsz, c_out, *vol), dt, dev, wres is not None)
+    out, s, ss, res, rs, rss = outs
     xs = list(streams) + [None] * (3 - len(streams))
     err = _build.lib().medseg_conv3x3x3(
         dev.index,
@@ -231,9 +285,48 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     )
     _build.check(err, f"conv3x3x3 kernel ({mode})")
     _MODE_WRAPPER[mode].launches += 1
-    if wres is None:
-        return out, s, ss
-    return out, s, ss, res, rs, rss
+    return outs if wres is not None else outs[:3]
+
+
+def _conv_outputs(shape, dtype, device, residual: bool):
+    """A conv kernel's outputs: (out, s, ss, res, rs, rss), the sums zeroed
+    for the kernel's atomics; the residual three None without the tap."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    s = torch.zeros(shape[:2], dtype=torch.float32, device=device)
+    if not residual:
+        return out, s, torch.zeros_like(s), None, None, None
+    zeros = torch.zeros_like
+    return out, s, zeros(s), torch.empty_like(out), zeros(s), zeros(s)
+
+
+def _launch_conv_tc(x, weight, wres, affines):
+    """K1 on the tensor cores (``tc_route``): checks shapes, packs the
+    weights, allocates outputs and launches ``csrc/conv_tc.cu`` once."""
+    dev, dt = x.device, weight.dtype
+    c_out, c = weight.shape[:2]
+    bsz, _, d, h, w = x.shape
+    _check(x, "x", (bsz, c, d, h, w), dt, dev)
+    _check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
+    if wres is not None:
+        _check(wres, "wres", (c_out, c, 1, 1, 1), dt, dev)
+    for i, t in enumerate(affines):
+        _check(t, f"affine {i}", (bsz, c), torch.float32, dev)
+        if t.data_ptr() % 16:  # the kernel reads the coefficients 16 bytes at a time
+            raise ValueError(f"affine {i} must start at a 16-byte boundary")
+    a, b = affines if affines else (None, None)
+    outs = _conv_outputs((bsz, c_out, d, h, w), dt, dev, wres is not None)
+    out, s, ss, res, rs, rss = outs
+    w_packed = pack_tc_weight(weight)
+    wres_packed = None if wres is None else pack_tc_wres(wres)
+    err = _build.lib().medseg_conv_tc(
+        dev.index, int(a is not None), int(wres is not None), c_out, _ptr(x), _ptr(a), _ptr(b),
+        _ptr(w_packed), _ptr(wres_packed), _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs),
+        _ptr(rss), bsz, c, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "conv3x3x3 tensor-core kernel")
+    conv3x3x3_of.launches += 1
+    conv3x3x3_of.tc_launches += 1
+    return outs if wres is not None else outs[:3]
 
 
 def conv3x3x3_of(x, weight, a=None, b=None, wres=None):
@@ -375,6 +468,8 @@ def conv3x3x3_wgrad_of(x, g):
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     bsz, c, d, h, w = x.shape
     c_out = g.shape[1]
+    if wgrad_tc_route(c, c_out, dt):
+        return _launch_wgrad_tc(x, g)
     if c_out == SPLIT_C_OUT:  # the rows of dW of each half of the cotangent
         return torch.cat([conv3x3x3_wgrad_of(x, half.contiguous()) for half in g.chunk(2, dim=1)])
     if c_out not in WGRAD_C_OUT:
@@ -397,6 +492,28 @@ def conv3x3x3_wgrad_of(x, g):
     return dw
 
 
+def _launch_wgrad_tc(x, g):
+    """K6 on the tensor cores (``wgrad_tc_route``): one launch of
+    ``csrc/wgrad_tc.cu`` (its wgrad pass and its fixed-order reduction)."""
+    dev, dt = x.device, x.dtype
+    bsz, c, d, h, w = x.shape
+    c_out = g.shape[1]
+    _check(x, "x", (bsz, c, d, h, w), dt, dev)
+    _check(g, "g", (bsz, c_out, d, h, w), dt, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = wgrad_tc_groups((bsz, c, d, h, w), sms)
+    partial = torch.empty((groups, c_out, c, 27), dtype=torch.float32, device=dev)
+    dw = torch.empty((c_out, c, 3, 3, 3), dtype=torch.float32, device=dev)
+    err = _build.lib().medseg_wgrad_tc(
+        dev.index, c_out, _ptr(x), _ptr(g), _ptr(partial), _ptr(dw), bsz, c, d, h, w, groups,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "wgrad tensor-core kernel")
+    conv3x3x3_wgrad_of.launches += 1
+    conv3x3x3_wgrad_of.tc_launches += 1
+    return dw
+
+
 _MODE_WRAPPER = {
     "plain": conv3x3x3_of, "affine_leaky": conv3x3x3_of, "cat2": conv3x3x3_of_cat2,
     "combine": conv3x3x3_of_combine,
@@ -404,9 +521,9 @@ _MODE_WRAPPER = {
 KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of, outhead_row_of,
            conv3x3x3_wgrad_of)
 for _fn in KERNELS:
-    _fn.launches = 0
+    _fn.launches = _fn.tc_launches = 0
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.tc_launches = 0

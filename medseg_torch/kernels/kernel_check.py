@@ -255,8 +255,9 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
                    n_classes: int = 14) -> list[Case]:
     """The kernels the UNETR-B/16 training step adds, at its shapes: K6 for
     each routed conv's (C, CO), K1's data gradient at 16->32 (dec2.conv1) and
-    32->64 (dec3.conv1, two 32-wide launches), K7 and K8 on (batch,
-    n_classes, full^3) logits."""
+    32->64 (dec3.conv1: one launch on the tensor cores in bf16, two 32-wide
+    launches on the CUDA cores in fp32), K7 and K8 on (batch, n_classes,
+    full^3) logits."""
     g = torch.Generator().manual_seed(1)
     half = full // 2
 

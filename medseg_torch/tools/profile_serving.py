@@ -41,6 +41,9 @@ OUT_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
 _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3_of_cat2",
               "3": "K2 conv3x3x3_of_combine"}
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
+    # K1 and K6 on the tensor cores; their CUDA-core route keeps the plain names
+    ("K1 conv3x3x3_of, tensor cores", re.compile(r"conv_tc_kernel")),
+    ("K6 conv3x3x3_wgrad_of, tensor cores", re.compile(r"wgrad_tc_(reduce_)?kernel")),
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
     ("K4 outhead_row_of", re.compile(r"outhead_row_kernel")),
     ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),

@@ -65,3 +65,38 @@ def test_import_builds_nothing():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "True"
+
+
+def test_chip_smoke_imports_no_jax_or_reference():
+    """``chip_smoke.py`` imports nothing of JAX, flax or the JAX package, at
+    the top or inside its phases (every import statement of the file)."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {name.split(".")[0] for name in names}
+    assert "medseg_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "medseg"}, sorted(roots)
+
+
+def test_every_kernel_entry_point_is_bound():
+    """Each ``extern "C"`` kernel entry point of ``csrc/*.cu`` (the
+    tensor-core routes' among them) has its ctypes signature, and every
+    source and header is part of the build's digest."""
+    import re
+
+    from medseg_torch.kernels import _build
+
+    defined = set()
+    for src in _build.CSRC.glob("*.cu"):
+        defined.update(re.findall(r"^int (medseg_\w+)\(", src.read_text(), re.M))
+    assert {"medseg_conv_tc", "medseg_wgrad_tc", "medseg_conv3x3x3", "medseg_wgrad"} <= defined
+    assert defined == set(_build._SIGNATURES)
+    names = {p.name for p in _build._sources()}
+    assert {"conv_tc.cu", "wgrad_tc.cu", "tc_common.cuh", "common.cuh"} <= names

@@ -7,9 +7,10 @@ there with:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Small shapes (2 x 16^3 and 8^3 volumes); ``chip_smoke.py`` repeats the
-comparisons at the serving path's, the training step's and the pretraining
-path's full shapes. Tolerances are those of
+Small shapes (2 x 16^3 and 8^3 volumes; K1's and K6's tensor-core routes
+at a 9x17x18 volume, ragged against their 2x8x16 tile); ``chip_smoke.py``
+repeats the comparisons at the serving path's, the training step's and the
+pretraining path's full shapes. Tolerances are those of
 ``medseg_torch.kernels.kernel_check``.
 """
 
@@ -131,11 +132,112 @@ def test_training_kernels_count_their_launches(device):
         case.kernel(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS + loss_of.KERNELS}
-    # K1's data gradient: 16->32 one launch, 32->64 two 32-wide launches
+    # fp32 takes the CUDA-core routes: K1's data gradient 16->32 is one
+    # launch, 32->64 two 32-wide launches
     assert counts == {
         "conv3x3x3_of": 3, "conv3x3x3_of_cat2": 0, "conv3x3x3_of_combine": 0, "outhead_of": 0,
         "outhead_row_of": 0, "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 1, "dice_ce_bwd": 1,
     }
+
+
+TC_VOLUME = (9, 17, 18)  # ragged against the tensor-core kernels' 2x8x16 voxel tile
+
+
+def _randn(g, *shape, scale=1.0):
+    return torch.randn(shape, generator=g) * scale
+
+
+@pytest.mark.parametrize("affine,residual", [(False, False), (True, False), (False, True),
+                                             (True, True)], ids=["plain", "affine", "res",
+                                                                 "affine-res"])
+@pytest.mark.parametrize("c_in,c_out", [(16, 16), (16, 32), (32, 64), (64, 32), (64, 64),
+                                        (48, 16)])
+def test_tc_conv_matches_plain(device, c_in, c_out, affine, residual):
+    """K1's tensor-core route (bf16, C_in % 16 == 0) against its plain
+    version at a ragged volume, with the prologue and the residual tap."""
+    g = torch.Generator().manual_seed(c_in * 100 + c_out)
+    bf = torch.bfloat16
+    x = _randn(g, 1, c_in, *TC_VOLUME).to(device, bf)
+    w = _randn(g, c_out, c_in, 3, 3, 3, scale=(27 * c_in) ** -0.5).to(device, bf)
+    args = [x, w]
+    if affine:
+        args += [(torch.rand((1, c_in), generator=g) + 0.5).to(device),
+                 _randn(g, 1, c_in, scale=0.5).to(device)]
+    kwargs = {"wres": _randn(g, c_out, c_in, 1, 1, 1, scale=c_in ** -0.5).to(device, bf)
+              } if residual else {}
+    case = kernel_check.Case("tc", conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_plain, tuple(args),
+                             kwargs)
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert conv_of.conv3x3x3_of.launches == conv_of.conv3x3x3_of.tc_launches == 1
+
+
+@pytest.mark.parametrize("c,c_out", [(16, 16), (32, 16), (64, 32), (32, 64), (64, 64)])
+def test_tc_wgrad_matches_plain(device, c, c_out):
+    """K6's tensor-core route against its plain version at a ragged volume."""
+    g = torch.Generator().manual_seed(c * 100 + c_out)
+    bf = torch.bfloat16
+    x = _randn(g, 2, c, *TC_VOLUME).to(device, bf)
+    cot = _randn(g, 2, c_out, *TC_VOLUME).to(device, bf)
+    case = kernel_check.Case("tc wgrad", conv_of.conv3x3x3_wgrad_of,
+                             conv_of.conv3x3x3_wgrad_of_plain, (x, cot))
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert conv_of.conv3x3x3_wgrad_of.launches == conv_of.conv3x3x3_wgrad_of.tc_launches == 1
+
+
+@pytest.mark.parametrize("c_in,c_out", [(16, 16), (32, 32), (64, 64)])
+def test_tc_routes_walk_many_tiles(device, c_in, c_out):
+    """675 tiles of 2x8x16 over three batch elements, more than the blocks
+    of either tensor-core kernel: K1's persistent blocks cross batch
+    elements (their statistics leave per element), at 64 -> 64 with the
+    weights streamed slice by slice; K6's tile groups sum several tiles."""
+    g = torch.Generator().manual_seed(c_in + c_out)
+    bf = torch.bfloat16
+    shape = (3, c_in, 30, 40, 33)
+    x = _randn(g, *shape).to(device, bf)
+    w = _randn(g, c_out, c_in, 3, 3, 3, scale=(27 * c_in) ** -0.5).to(device, bf)
+    a = (torch.rand((3, c_in), generator=g) + 0.5).to(device)
+    b = _randn(g, 3, c_in, scale=0.5).to(device)
+    cot = _randn(g, 3, c_out, *shape[2:]).to(device, bf)
+    assert conv_of.tc_tiles(shape) == 675
+    conv_of.reset_launches()
+    for case in (
+        kernel_check.Case("tc", conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_plain, (x, w, a, b)),
+        kernel_check.Case("tc wgrad", conv_of.conv3x3x3_wgrad_of,
+                          conv_of.conv3x3x3_wgrad_of_plain, (x, cot)),
+    ):
+        r = kernel_check.run_case(case, bf)
+        assert r["ok"], r
+    assert conv_of.conv3x3x3_of.tc_launches == conv_of.conv3x3x3_wgrad_of.tc_launches == 1
+
+
+def test_routes_count_tc_launches(device):
+    """bf16 with C_in % 16 == 0 takes the tensor cores, one launch even at
+    64 output channels; fp32 and C_in = 1 take the CUDA cores (64 wide: two
+    launches)."""
+    def conv(c_in, c_out, dtype):
+        x = torch.randn(1, c_in, 4, 8, 8, device=device, dtype=dtype)
+        conv_of.conv3x3x3_of(x, torch.randn(c_out, c_in, 3, 3, 3, device=device, dtype=dtype))
+
+    def wgrad(c, c_out, dtype):
+        x = torch.randn(1, c, 4, 8, 8, device=device, dtype=dtype)
+        conv_of.conv3x3x3_wgrad_of(x, torch.randn(1, c_out, 4, 8, 8, device=device, dtype=dtype))
+
+    k1, k6 = conv_of.conv3x3x3_of, conv_of.conv3x3x3_wgrad_of
+    bf, f32 = torch.bfloat16, torch.float32
+    for fn, wrapper, c_in, c_out, dtype, launches, tc in (
+        (conv, k1, 16, 16, bf, 1, 1), (conv, k1, 16, 16, f32, 1, 0), (conv, k1, 1, 16, bf, 1, 0),
+        (conv, k1, 32, 64, bf, 1, 1), (conv, k1, 32, 64, f32, 2, 0),
+        (wgrad, k6, 16, 16, bf, 1, 1), (wgrad, k6, 16, 16, f32, 1, 0), (wgrad, k6, 1, 16, bf, 1, 0),
+        (wgrad, k6, 32, 64, bf, 1, 1), (wgrad, k6, 32, 64, f32, 2, 0),
+    ):
+        conv_of.reset_launches()
+        fn(c_in, c_out, dtype)
+        assert (wrapper.launches, wrapper.tc_launches) == (launches, tc), (c_in, c_out, dtype)
+    torch.cuda.synchronize()
 
 
 def test_training_step_matches_the_step_without_kernels(device):

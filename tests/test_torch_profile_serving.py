@@ -16,6 +16,12 @@ from medseg_torch.tools import profile_serving as ps
      "K5 conv3x3x3_of_cat2"),
     ("void medseg::(anonymous namespace)::conv3_kernel<__nv_bfloat16, 3, true, 16>(medseg::ConvArgs)",
      "K2 conv3x3x3_of_combine"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<1, false, 16>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K1 conv3x3x3_of, tensor cores"),
+    ("void medseg::(anonymous namespace)::wgrad_tc_kernel<32>"
+     "(medseg::(anonymous namespace)::WgradTcArgs)", "K6 conv3x3x3_wgrad_of, tensor cores"),
+    ("medseg::(anonymous namespace)::wgrad_tc_reduce_kernel(float const*, float*, int, int)",
+     "K6 conv3x3x3_wgrad_of, tensor cores"),
     ("void medseg::outhead_kernel<__nv_bfloat16>(...)", "K3 outhead_of"),
     ("void medseg::(anonymous namespace)::outhead_row_kernel<__nv_bfloat16, float, 16, 16>"
      "(medseg::(anonymous namespace)::RowArgs)", "K4 outhead_row_of"),
