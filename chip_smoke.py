@@ -23,19 +23,22 @@ on failure:
    shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators), then at
    the BraTS window (128^3, four channels), with errors, CUDA-event times and
    the route each case took (K1 and K6: the tensor cores for bf16 with C_in
-   a multiple of 16, the CUDA cores otherwise);
+   a multiple of 16; K5 and K2: the tensor cores for bf16 with both halves
+   of their input a multiple of 16 wide; the CUDA cores otherwise);
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
    one batch of four 96^3 windows;
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
-   timed run each, whose kernel launches are counted: 50 K4 launches, K1 on
+   timed run each, whose kernel launches are counted: 50 K4 launches, 50
+   K2 and 50 K5 launches, all of these two on the tensor cores, and K1 on
    the tensor cores);
 6. config 8: a small four-channel volume against the plain fp32 forward,
-   then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched);
+   then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched;
+   K2 and K5 only on the tensor cores);
 7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
    preprocessing on a synthetic two-volume CT Decathlon directory; masks
-   checked, end-to-end vol/s printed;
+   checked, end-to-end vol/s printed (K2 and K5 only on the tensor cores);
 8. the training step's kernels (K6, K1's data gradient, K7, K8) against
    their plain versions at its shapes, fp32 and bf16, timed;
 9. the training step: loss and gradients through the kernels (bf16, remat)
@@ -60,9 +63,10 @@ on failure:
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
     both stages' checkpoints and loss-vs-time artifacts, steps/s.
 
-The line before the last is the JSON kernel table (K1 and K6 with the
-launches of their tensor-core route beside all their launches); the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the JSON kernel table (K1, K2, K5 and K6 with
+the launches of their tensor-core route beside all their launches, and the
+route their timed case took); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,9 +86,9 @@ import torch
 KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of its time)
     "conv3x3x3_of": ("medseg_torch/kernels/csrc/conv_tc.cu", "medseg/kernels/conv_of.py:761",
                      "enc1.conv2 16->16 affine @4x96^3"),
-    "conv3x3x3_of_cat2": ("medseg_torch/kernels/csrc/conv_of.cu",
+    "conv3x3x3_of_cat2": ("medseg_torch/kernels/csrc/conv_tc.cu",
                           "medseg/kernels/conv_of.py:1044", "dec3.conv1 (32+32)->32 @4x48^3"),
-    "conv3x3x3_of_combine": ("medseg_torch/kernels/csrc/conv_of.cu",
+    "conv3x3x3_of_combine": ("medseg_torch/kernels/csrc/conv_tc.cu",
                              "medseg/kernels/conv_of.py:1205",
                              "dec2.conv1 (16+16)->16 x1ch @4x96^3"),
     "outhead_of": ("medseg_torch/kernels/csrc/outhead_of.cu", "medseg/kernels/conv_of.py:1423",
@@ -100,12 +104,16 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
     "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_flat.cu", "medseg/kernels/conv3d.py:134",
                        "dec3.conv1 128->64 (feature size 32) @4x48^3"),
 }
-# K1 and K6 have a second route, on the CUDA cores (fp32, C_in of 1 or 4); the
-# timed bf16 case above takes the tensor cores. "<name>[tc]" counts the
-# launches that took the tensor-core route
+# K1, K2, K5 and K6 have a second route, on the CUDA cores (fp32, C_in of 1
+# or 4, K5 at C = 128); the timed bf16 case above takes the tensor cores.
+# "<name>[tc]" counts the launches that took the tensor-core route
 CUDA_CORE_SOURCES = {"conv3x3x3_of": "medseg_torch/kernels/csrc/conv_of.cu",
+                     "conv3x3x3_of_cat2": "medseg_torch/kernels/csrc/conv_of.cu",
+                     "conv3x3x3_of_combine": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu"}
 K1_TC, K6_TC = "conv3x3x3_of[tc]", "conv3x3x3_wgrad_of[tc]"
+# K5 and K2 run only on the tensor cores on the serving paths (feature size 16)
+TC_ONLY = ("conv3x3x3_of_cat2", "conv3x3x3_of_combine")
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
 # the training step, bf16 through the kernels vs the fp32 module without them
 # (same weights and batch): relative error of the loss and relative L2 of all
@@ -119,7 +127,9 @@ ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "ou
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
                  K6_TC)
-CONFIG4_K4_LAUNCHES = 50  # 10 d-starts x 5 groups of 2 h-rows (3 w-windows each)
+# per config-4 volume, one launch per batch of 6 windows: 10 d-starts x 5
+# groups of 2 h-rows (3 w-windows each)
+CONFIG4_BATCHES = {"outhead_row_of": 50, "conv3x3x3_of_cat2": 50, "conv3x3x3_of_combine": 50}
 # each kernel's launches come from the path that is its home
 HOME_PATH = {"outhead_of": "brats", "conv3x3x3_wgrad_of": "train", "dice_ce_sums": "train",
              "dice_ce_bwd": "train", "conv3x3x3_flat": "pretrain-flat"}
@@ -173,14 +183,14 @@ def phase_build(card: str) -> None:
 
 
 def all_launches() -> dict:
-    """Launches of each kernel, and ``<name>[tc]`` those of K1 and K6 that
-    took the tensor-core route."""
+    """Launches of each kernel, and ``<name>[tc]`` those of K1, K2, K5 and
+    K6 that took the tensor-core route."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
     counts = {fn.__name__: fn.launches
               for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
-    counts[K1_TC] = conv_of.conv3x3x3_of.tc_launches
-    counts[K6_TC] = conv_of.conv3x3x3_wgrad_of.tc_launches
+    for name in CUDA_CORE_SOURCES:
+        counts[f"{name}[tc]"] = getattr(conv_of, name).tc_launches
     return counts
 
 
@@ -289,6 +299,15 @@ def require_launched(launches: dict, names, label: str) -> None:
         raise RuntimeError(f"kernels not launched on the {label} path: {missing}")
 
 
+def require_tc_only(launches: dict, label: str) -> None:
+    """K5 and K2 launched, every launch on the tensor cores."""
+    off = {name: (launches[name], launches[f"{name}[tc]"]) for name in TC_ONLY
+           if not launches[name] or launches[name] != launches[f"{name}[tc]"]}
+    if off:
+        raise RuntimeError(f"{label}: (launches, tensor-core launches) {off}: expected all on "
+                           "the tensor cores")
+
+
 def phase_slice(model, model_fp32, device, card: str) -> dict:
     """Both routes on small volumes against the plain fp32 walk, then config
     4 through the z-row walk with an fp32 and a bf16 accumulator."""
@@ -337,9 +356,10 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches "
             f"{launches[acc]}")
         require_launched(launches[acc], ZROW_KERNELS + (K1_TC,), "config-4")
-        if launches[acc]["outhead_row_of"] != CONFIG4_K4_LAUNCHES:
-            raise RuntimeError(f"config 4: {launches[acc]['outhead_row_of']} K4 launches, "
-                               f"expected {CONFIG4_K4_LAUNCHES}")
+        require_tc_only(launches[acc], f"config 4 (acc {acc})")
+        counts = {name: launches[acc][name] for name in CONFIG4_BATCHES}
+        if counts != CONFIG4_BATCHES:
+            raise RuntimeError(f"config 4: launches {counts}, expected {CONFIG4_BATCHES}")
     return launches["bf16"]
 
 
@@ -383,6 +403,7 @@ def phase_brats(device, card: str) -> dict:
         f"{18 / seconds:.1f} windows/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
         f"[{card}]; launches {launches}")
     require_launched(launches, FLAT_KERNELS, "config-8")
+    require_tc_only(launches, "config 8")
     return launches
 
 
@@ -442,6 +463,7 @@ def phase_cli(device, card: str) -> dict:
         f"vol/s after it [{card}]; masks {mask.data.shape} int16, labels {labels.tolist()}; "
         f"launches {launches}")
     require_launched(launches, ZROW_KERNELS, "CLI")
+    require_tc_only(launches, "the CLI")
     return launches
 
 
@@ -800,7 +822,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
         }
-        if name in CUDA_CORE_SOURCES:  # K1, K6: the launches of each of their two routes
+        if name in CUDA_CORE_SOURCES:  # K1, K2, K5, K6: the launches of each of their routes
             tc = f"{name}[tc]"
             kernel.update({
                 "cuda_core_source": CUDA_CORE_SOURCES[name], "timed_route": row["timed_route"],

@@ -55,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sw-batch", type=int, default=8)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--fast-path", dest="fast_path", action="store_true", default=True,
-                   help="the fused serving forward with its kernels (default)")
+                   help="the fused serving forward with its kernels (default), where the "
+                        "model's widths and the window allow it; else the module forward")
     p.add_argument("--no-fast-path", dest="fast_path", action="store_false",
                    help="the plain module forward")
     p.add_argument("--host-preprocess", action="store_true",

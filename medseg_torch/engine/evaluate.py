@@ -5,13 +5,17 @@ Per volume: blended whole-volume logits, the task's post-transform, Dice
 accumulation; then mean and per-class aggregates. With the fast path (the
 default) the windows go through the fused serving forward
 (``kernels.unetr_of.fast_apply_v3``, blend weight folded into its out head),
-routed as the JAX Validator routes them without a mesh: grids that
+where ``kernels.unetr_of.fast_path_supported`` accepts the window shape on
+the device (as the JAX Validator checks ``fast_path_supported_v2``), routed
+as the JAX Validator routes them without a mesh: grids that
 ``zrow_supported`` accepts take the z-row walk, whose out head (K4) adds the
 windows straight into the volume accumulator; other grids take the flat
 walk (K3 logits added by slicing). The fused forward launches the CUDA
 kernels on a CUDA device and runs their plain versions on the CPU. Without
-the fast path the module forward runs through the flat walk with an fp32
-accumulator (the JAX "ndhwc" route, which does not read ``acc_dtype``).
+the fast path, or where the predicate is false (a width the kernels lack, a
+window below 48^3 on the card), the module forward runs through the flat
+walk with an fp32 accumulator (the JAX "ndhwc" route, which does not read
+``acc_dtype``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from medseg_torch.kernels.unetr_of import fast_apply_v3, fused_weights
+from medseg_torch.kernels.unetr_of import fast_apply_v3, fast_path_supported, fused_weights
 from medseg_torch.ops.metrics import DiceAccumulator
 from medseg_torch.ops.post import argmax_onehot, sigmoid_threshold, to_onehot
 from medseg_torch.ops.sliding_window import (
@@ -49,8 +53,10 @@ class Validator:
       n_classes: output channels.
       task: "ct" (argmax/one-hot post) or "mri" (sigmoid + threshold).
       spec: sliding-window grid/blending configuration.
-      use_fast_path: the fused forward (kernels) and the z-row/flat routing;
-        False runs the module forward through the flat walk.
+      use_fast_path: the fused forward (kernels) and the z-row/flat routing
+        where ``fast_path_supported`` accepts the window (``use_fast_path``
+        then says whether it did); False runs the module forward through the
+        flat walk.
       acc_dtype: "fp32" (default, the MONAI contract) or "bf16": the blend
         accumulator of the fast path's walks.
       device: where the model, the windows and the accumulator live.
@@ -64,9 +70,10 @@ class Validator:
         self.n_classes = n_classes
         self.task = task
         self.spec = spec
-        self.use_fast_path = use_fast_path
+        window = (spec.sw_batch, self.model.in_channels, *spec.roi)
+        self.use_fast_path = use_fast_path and fast_path_supported(self.model, window, self.device)
         self.acc_dtype = acc_dtype
-        if use_fast_path:
+        if self.use_fast_path:
             weights = fused_weights(self.model)  # the kernels' weights, cast once
 
             def apply_fn(windows, wgt):

@@ -40,9 +40,9 @@ _SIGNATURES = {
     "medseg_outhead_row": [_I] * 3 + [_P] * 10 + [_I] * 9 + [_P] * 4,
     # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
-    # device, mode, residual, c_out, x, a, b, w_packed, wres_packed, out, s,
-    # ss, res, rs, rss, B, C, D, H, W, stream
-    "medseg_conv_tc": [_I] * 4 + [_P] * 11 + [_I] * 5 + [_P],
+    # device, mode, residual, c_out, x0, x1, x2, a0, b0, a1, b1, w_packed,
+    # wres_packed, out, s, ss, res, rs, rss, B, C, Cx, D, H, W, stream
+    "medseg_conv_tc": [_I] * 4 + [_P] * 15 + [_I] * 6 + [_P],
     # device, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad_tc": [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P],
     # device, bf16, co_tile, x, w, out, B, C, C_out, D, H, W, stream

@@ -11,10 +11,14 @@ VJPs).
   only when the input needs it; the filter gradient is K6
   (``conv_of.conv3x3x3_wgrad_of``, fp32), rounded to the weight's dtype.
 
-``train_route`` is its shape predicate: the same on CPU (where the wrappers
-run their plain versions) and on the card (where a width the kernels lack
-raises). NCDHW needs no block-level layout trick, so the Function wraps each
-conv.
+``train_route`` is its predicate, on the shape, the dtype and the device: the
+JAX route's terms (H*W, the widths up to 64), and on a CUDA device the
+widths of every kernel the forward and backward launch (``conv_of``'s width
+table: K1 at C_in -> C_out, K1's data gradient at C_out -> C_in where the
+input needs a gradient, K6), so that a width the kernels lack goes to the
+library conv instead of raising. On the CPU the wrappers run their plain
+versions, which take every width. NCDHW needs no block-level layout trick,
+so the Function wraps each conv.
 
 ``FlatConvFn`` is the flat per-conv route, taken by the convs that
 ``train_route`` declines where ``flat_route`` accepts them (off unless
@@ -43,11 +47,27 @@ LANE = 128  # the TPU lane width, in which the JAX predicate is written
 FLAT_MIN_W = 48  # narrowest W the flat route takes (the JAX predicate's)
 
 
-def train_route(x_shape, c_out: int) -> bool:
-    """Whether a 3x3x3 stride-1 conv of an (B, C, D, H, W) input to ``c_out``
-    channels runs through ``Conv3x3x3Fn``."""
+def _of_terms(x_shape, c_out: int) -> bool:
+    """The JAX route's terms that the port keeps (``_of_ok`` without its TPU
+    layout conditions)."""
     _, c, _, h, w = x_shape
     return h * w >= OF_MIN_HW and c <= MAX_C and c_out <= MAX_C
+
+
+def train_route(x_shape, c_out: int, dtype: torch.dtype = torch.float32, *,
+                input_grad: bool = True, device="cpu") -> bool:
+    """Whether a 3x3x3 stride-1 conv of an (B, C, D, H, W) input to ``c_out``
+    channels in ``dtype`` on ``device`` runs through ``Conv3x3x3Fn``;
+    ``input_grad``: whether the input needs a gradient (K1's data gradient
+    runs only then)."""
+    if not _of_terms(x_shape, c_out):
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    c = x_shape[1]
+    return (conv_of.conv_has_kernel("plain", c, c_out, dtype)
+            and (not input_grad or conv_of.conv_has_kernel("plain", c_out, c, dtype))
+            and conv_of.wgrad_has_kernel(c, c_out, dtype))
 
 
 def _wp(w: int) -> int:
@@ -79,10 +99,16 @@ def flat_supported(x_shape, c_out: int) -> bool:
     return row_bytes * 6 + patch_bytes + out_bytes < 64 * 1024 * 1024
 
 
-def flat_route(x_shape, c_out: int) -> bool:
-    """Whether a 3x3x3 conv runs through ``FlatConvFn``: the route is on,
-    the shape is one the flat kernel takes, and ``train_route`` declines it."""
-    return PALLAS_PER_CONV and flat_supported(x_shape, c_out) and not train_route(x_shape, c_out)
+def flat_route(x_shape, c_out: int, *, device="cpu") -> bool:
+    """Whether a 3x3x3 conv on ``device`` runs through ``FlatConvFn``: the
+    route is on, the shape is one the JAX flat kernel takes, and the JAX
+    route's terms of ``train_route`` decline it (``flat_supported and not
+    _of_ok`` in the JAX package: a conv that ``train_route`` declines only
+    for a width the kernels lack goes to the library conv, not here); on a
+    CUDA device, K9 also has the widths."""
+    if not (PALLAS_PER_CONV and flat_supported(x_shape, c_out) and not _of_terms(x_shape, c_out)):
+        return False
+    return torch.device(device).type != "cuda" or conv_flat.has_kernel(x_shape[1], c_out)
 
 
 class Conv3x3x3Fn(torch.autograd.Function):

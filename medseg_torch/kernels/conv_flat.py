@@ -6,8 +6,8 @@
 (fp32 or bf16), summed in fp32 and returned in fp32 (B, CO, D, H, W). No
 prologue, residual tap or statistics. The kernel (``csrc/conv_flat.cu``)
 takes C a multiple of 8 up to 128 and CO a multiple of 16 up to 128 in one
-launch; it raises on any other width. On a CPU tensor the wrapper runs the
-plain version; ``launches`` counts the kernel's launches.
+launch (``has_kernel``); it raises on any other width. On a CPU tensor the
+wrapper runs the plain version; ``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -20,6 +20,12 @@ from medseg_torch.kernels import _build, conv_of  # its helpers, used at call ti
 MAX_C = 128  # widest input or output the kernel takes
 C_ALIGN = 8  # input channels per staged chunk (FCC of csrc/conv_flat.cu)
 CO_TILES = (32, 16)  # output channels per block (the kernel's instantiations)
+
+
+def has_kernel(c: int, c_out: int) -> bool:
+    """Whether the kernel takes ``c`` -> ``c_out`` channels."""
+    return (0 < c <= MAX_C and c % C_ALIGN == 0 and 0 < c_out <= MAX_C
+            and any(c_out % t == 0 for t in CO_TILES))
 
 
 def conv3x3x3_flat_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -39,10 +45,10 @@ def conv3x3x3_flat(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     c_out = weight.shape[0]
     if c % C_ALIGN or c > MAX_C:
         raise ValueError(f"C={c}: the flat conv kernel takes C a multiple of {C_ALIGN} up to {MAX_C}")
-    tile = next((t for t in CO_TILES if c_out % t == 0), None)
-    if tile is None or c_out > MAX_C:
+    if not has_kernel(c, c_out):
         raise ValueError(f"C_out={c_out}: the flat conv kernel takes C_out a multiple of "
                          f"{CO_TILES[-1]} up to {MAX_C}")
+    tile = next(t for t in CO_TILES if c_out % t == 0)
     conv_of._check(x, "x", (bsz, c, d, h, w), dt, dev)
     conv_of._check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
     out = torch.empty((bsz, c_out, d, h, w), dtype=torch.float32, device=dev)

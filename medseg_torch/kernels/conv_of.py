@@ -19,17 +19,26 @@ Six wrappers, each beside its plain PyTorch version in this module:
 - ``conv3x3x3_wgrad_of`` (K6): the filter gradient of a no-prologue 3x3x3
   conv, fp32.
 
-K1 and K6 have two routes each, picked by shape and dtype alone:
+K1, K2, K5 and K6 have two routes each, picked by shape and dtype alone:
 
 - the tensor cores (``csrc/conv_tc.cu``, ``csrc/wgrad_tc.cu``): bf16
-  operands, C_in a multiple of 16 up to 64, C_out 16, 32 or 64 in one
-  launch (``tc_route``, ``wgrad_tc_route``); K1 in modes PLAIN and AFFINE,
-  with or without the residual tap. The wrapper packs K1's weights into
-  the kernel's layout (``pack_tc_weight``, ``pack_tc_wres``);
+  operands and the widths of ``tc_route`` / ``wgrad_tc_route``: K1 and K6
+  with C_in a multiple of 16 up to 64 and C_out 16, 32 or 64 in one launch
+  (K1 with or without the residual tap); K5 and K2 with both halves of
+  their input a multiple of 16 wide (C up to 64) at the output widths of
+  ``TC_MODE_C_OUT``. The wrapper packs the conv weights into the kernel's
+  layout (``pack_tc_weight``, ``pack_tc_wres``);
 - the CUDA cores (``csrc/conv_of.cu``, ``csrc/wgrad_of.cu``): every other
-  call (fp32 operands, C_in of 1 or 4). They are instantiated for 16 and 32
-  output channels; a 64-wide conv runs as two 32-wide launches over the
-  halves of its weight (K6: of its cotangent), concatenated.
+  call (fp32 operands, C_in of 1 or 4, K5 at C = 128). They are
+  instantiated for 16 and 32 output channels; a 64-wide conv runs as two
+  32-wide launches over the halves of its weight (K6: of its cotangent),
+  concatenated.
+
+``conv_has_kernel``, ``wgrad_has_kernel``, ``outhead_has_kernel`` and
+``outhead_row_has_kernel`` are the width table of all of them: the wrappers
+raise on a width it lacks, and the routes that send work to the kernels
+(``kernels.conv3d.train_route``, ``kernels.unetr_of.fast_path_supported``)
+read it, so that they never send one.
 
 Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
 weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
@@ -63,22 +72,58 @@ OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu: windows per launch
 TC_SLICE = 16  # input channels per k-step of the tensor-core kernels
 TC_MAX_C = 64  # widest input the tensor-core kernels take (kernels.conv3d.MAX_C)
 TC_C_OUT = (16, 32, 64)  # output widths they are instantiated for, each one launch
+# per mode of csrc/conv_tc.cu: CAT2 and COMBINE only at the decoder's C_out =
+# C/2 that their routes send (K5 at feature size 16; K2 at 16 and 32)
+TC_MODE_C_OUT = {"plain": TC_C_OUT, "affine_leaky": TC_C_OUT, "cat2": (32,), "combine": (16, 32)}
 TC_TILE = (2, 8, 16)  # (z, y, x) voxel tile of a block of either
 WGRAD_TC_BLOCKS_PER_SM = 2  # K6 tile groups per SM (two blocks fit at C_out = 16)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def tc_route(c_in: int, c_out: int, dtype: torch.dtype) -> bool:
-    """Whether a K1 call (modes plain and affine_leaky) of ``c_in`` ->
-    ``c_out`` channels in ``dtype`` runs on the tensor cores."""
-    return (dtype == torch.bfloat16 and c_in % TC_SLICE == 0 and 0 < c_in <= TC_MAX_C
-            and c_out in TC_C_OUT)
+def tc_route(c_in: int, c_out: int, dtype: torch.dtype, mode: str = "plain") -> bool:
+    """Whether a conv call of ``c_in`` -> ``c_out`` channels in ``dtype``
+    runs on the tensor cores: K1 (modes plain and affine_leaky), K5 (cat2)
+    or K2 (combine; ``c_in`` counts both halves of the input, whose boundary
+    must fall on a 16-channel slice)."""
+    slice_c = c_in // 2 if mode in ("cat2", "combine") else c_in
+    return (dtype == torch.bfloat16 and c_in % 2 == 0 and slice_c % TC_SLICE == 0
+            and 0 < c_in <= TC_MAX_C and c_out in TC_MODE_C_OUT[mode])
 
 
 def wgrad_tc_route(c: int, c_out: int, dtype: torch.dtype) -> bool:
     """Whether a K6 call (x of ``c`` channels, a cotangent of ``c_out``)
     in ``dtype`` runs on the tensor cores."""
     return tc_route(c, c_out, dtype)
+
+
+def conv_has_kernel(mode: str, c_in: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether ``conv3x3x3_of`` (modes plain, affine_leaky), ``_cat2`` or
+    ``_combine`` has a kernel for ``c_in`` -> ``c_out`` channels in
+    ``dtype``: the tensor-core route, or the CUDA-core kernel's
+    ``KERNEL_C_OUT`` (``SPLIT_C_OUT`` as two launches) at any C_in."""
+    if dtype not in _DTYPES or (mode in ("cat2", "combine") and c_in % 2):
+        return False
+    return (tc_route(c_in, c_out, dtype, mode) or c_out in KERNEL_C_OUT
+            or c_out == SPLIT_C_OUT)
+
+
+def wgrad_has_kernel(c: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether ``conv3x3x3_wgrad_of`` has a kernel for x of ``c`` channels
+    and a cotangent of ``c_out`` in ``dtype``."""
+    return dtype in _DTYPES and (wgrad_tc_route(c, c_out, dtype) or c_out in WGRAD_C_OUT
+                                 or c_out == SPLIT_C_OUT)
+
+
+def outhead_has_kernel(c: int) -> bool:
+    """Whether ``outhead_of`` has a kernel for ``c`` input channels (any
+    number of classes)."""
+    return 0 < c <= OUTHEAD_MAX_C
+
+
+def outhead_row_has_kernel(c: int, k: int) -> bool:
+    """Whether ``outhead_row_of`` has a kernel for ``c`` input channels and
+    ``k`` (padded) classes."""
+    return 0 < c <= OUTHEAD_ROW_MAX_C and 0 < k <= OUTHEAD_ROW_MAX_K
 
 
 def tc_tiles(x_shape) -> int:
@@ -240,8 +285,14 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     if dt not in _DTYPES:
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     c_out, c = weight.shape[:2]
-    if mode in ("plain", "affine_leaky") and tc_route(c, c_out, dt):
-        return _launch_conv_tc(x0, weight, wres, affines)
+    if not conv_has_kernel(mode, c, c_out, dt):
+        raise ValueError(
+            f"C_out={c_out}: the conv kernel is built for C_out in {KERNEL_C_OUT} "
+            f"(and {SPLIT_C_OUT} as two launches), and on the tensor cores for "
+            f"{TC_MODE_C_OUT[mode]} ({mode}, C={c}, {dt})"
+        )
+    if tc_route(c, c_out, dt, mode):
+        return _launch_conv_tc(mode, streams, weight, wres, affines, x_channels)
     if c_out == SPLIT_C_OUT:
         wres_halves = (None, None) if wres is None else wres.chunk(2)
         halves = [
@@ -249,11 +300,6 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
             for w_half, r_half in zip(weight.chunk(2), wres_halves)
         ]
         return tuple(torch.cat(parts, dim=1) for parts in zip(*halves))
-    if c_out not in KERNEL_C_OUT:
-        raise ValueError(
-            f"C_out={c_out}: the conv kernel is built for C_out in {KERNEL_C_OUT} "
-            f"(and {SPLIT_C_OUT} as two launches)"
-        )
     bsz, _, d, h, w = x0.shape
     vol = (d, h, w)
     c_half = c // 2 if mode in ("cat2", "combine") else 0
@@ -299,33 +345,45 @@ def _conv_outputs(shape, dtype, device, residual: bool):
     return out, s, zeros(s), torch.empty_like(out), zeros(s), zeros(s)
 
 
-def _launch_conv_tc(x, weight, wres, affines):
-    """K1 on the tensor cores (``tc_route``): checks shapes, packs the
-    weights, allocates outputs and launches ``csrc/conv_tc.cu`` once."""
-    dev, dt = x.device, weight.dtype
+def _launch_conv_tc(mode, streams, weight, wres, affines, x_channels):
+    """A conv on the tensor cores (``tc_route``): checks shapes, packs the
+    weights, allocates outputs and launches ``csrc/conv_tc.cu`` once,
+    adding it to the ``launches`` and ``tc_launches`` of the mode's
+    wrapper."""
+    x0 = streams[0]
+    dev, dt = x0.device, weight.dtype
     c_out, c = weight.shape[:2]
-    bsz, _, d, h, w = x.shape
-    _check(x, "x", (bsz, c, d, h, w), dt, dev)
+    bsz, _, d, h, w = x0.shape
+    two = mode in ("cat2", "combine")
+    width = c // 2 if two else c  # of each stream but COMBINE's x, and of the affines
+    if mode == "combine" and x_channels not in (1, width):
+        raise ValueError(f"combine: x has {x_channels} channels, expected 1 or {width}")
+    if two and wres is None:
+        raise ValueError(f"{mode}: the kernel takes the residual tap")
+    widths = [width, width, x_channels][: len(streams)]
+    for i, (t, cw) in enumerate(zip(streams, widths)):
+        _check(t, f"input stream {i}", (bsz, cw, d, h, w), dt, dev)
     _check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
     if wres is not None:
         _check(wres, "wres", (c_out, c, 1, 1, 1), dt, dev)
     for i, t in enumerate(affines):
-        _check(t, f"affine {i}", (bsz, c), torch.float32, dev)
+        _check(t, f"affine {i}", (bsz, width), torch.float32, dev)
         if t.data_ptr() % 16:  # the kernel reads the coefficients 16 bytes at a time
             raise ValueError(f"affine {i} must start at a 16-byte boundary")
-    a, b = affines if affines else (None, None)
+    xs = list(streams) + [None] * (3 - len(streams))
+    aff = list(affines) + [None] * (4 - len(affines))
     outs = _conv_outputs((bsz, c_out, d, h, w), dt, dev, wres is not None)
     out, s, ss, res, rs, rss = outs
     w_packed = pack_tc_weight(weight)
     wres_packed = None if wres is None else pack_tc_wres(wres)
     err = _build.lib().medseg_conv_tc(
-        dev.index, int(a is not None), int(wres is not None), c_out, _ptr(x), _ptr(a), _ptr(b),
+        dev.index, _MODES[mode], int(wres is not None), c_out, *map(_ptr, xs), *map(_ptr, aff),
         _ptr(w_packed), _ptr(wres_packed), _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs),
-        _ptr(rss), bsz, c, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(rss), bsz, c, x_channels, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "conv3x3x3 tensor-core kernel")
-    conv3x3x3_of.launches += 1
-    conv3x3x3_of.tc_launches += 1
+    _build.check(err, f"conv3x3x3 tensor-core kernel ({mode})")
+    _MODE_WRAPPER[mode].launches += 1
+    _MODE_WRAPPER[mode].tc_launches += 1
     return outs if wres is not None else outs[:3]
 
 
@@ -371,7 +429,7 @@ def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
     if dt not in _DTYPES:
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     bsz, c, d, h, w = z.shape
-    if c > OUTHEAD_MAX_C:
+    if not outhead_has_kernel(c):
         raise ValueError(f"out head: C={c} above the kernel's {OUTHEAD_MAX_C} register slots")
     k = kout.shape[0]
     _check(z, "z", (bsz, c, d, h, w), dt, dev)
@@ -428,7 +486,7 @@ def outhead_row_of(z, res, az, bz, ar, br, kout, bias, scale, starts, acc) -> No
     if acc.dtype not in _DTYPES:
         raise ValueError(f"accumulator dtype {acc.dtype} not supported (float32 or bfloat16)")
     k = kout.shape[0]
-    if c > OUTHEAD_ROW_MAX_C or k > OUTHEAD_ROW_MAX_K:
+    if not outhead_row_has_kernel(c, k):
         raise ValueError(f"out head row: C={c}, K={k} above the kernel's register slots "
                          f"({OUTHEAD_ROW_MAX_C}, {OUTHEAD_ROW_MAX_K})")
     _check(z, "z", (bsz, c, rd, rh, rw), dt, dev)
@@ -468,13 +526,13 @@ def conv3x3x3_wgrad_of(x, g):
         raise ValueError(f"compute dtype {dt} not supported (float32 or bfloat16)")
     bsz, c, d, h, w = x.shape
     c_out = g.shape[1]
+    if not wgrad_has_kernel(c, c_out, dt):
+        raise ValueError(f"C_out={c_out}: the wgrad kernel is built for C_out in {WGRAD_C_OUT} "
+                         f"(and {SPLIT_C_OUT} as two launches)")
     if wgrad_tc_route(c, c_out, dt):
         return _launch_wgrad_tc(x, g)
     if c_out == SPLIT_C_OUT:  # the rows of dW of each half of the cotangent
         return torch.cat([conv3x3x3_wgrad_of(x, half.contiguous()) for half in g.chunk(2, dim=1)])
-    if c_out not in WGRAD_C_OUT:
-        raise ValueError(f"C_out={c_out}: the wgrad kernel is built for C_out in {WGRAD_C_OUT} "
-                         f"(and {SPLIT_C_OUT} as two launches)")
     _check(x, "x", (bsz, c, d, h, w), dt, dev)
     _check(g, "g", (bsz, c_out, d, h, w), dt, dev)
     chunks = -(-c // WGRAD_CC)

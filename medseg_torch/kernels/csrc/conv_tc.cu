@@ -1,12 +1,21 @@
 // Fused 3x3x3 same-pad convolution on the tensor cores: bf16 operands, fp32
-// sums, an optional input prologue leaky(a*x + b), an optional residual
-// 1x1x1 tap, and per-(b, c_out) sum and sum of squares of the fp32 results.
-// NCDHW activations; weights packed by the wrapper
-// (``conv_of.pack_tc_weight``): (C/16, 27, CO, 16) and (C/16, CO, 16) bf16.
+// sums, an input mode, an optional residual 1x1x1 tap, and per-(b, c_out)
+// sum and sum of squares of the fp32 results. NCDHW activations; weights
+// packed by the wrapper (``conv_of.pack_tc_weight``): (C/16, 27, CO, 16) and
+// (C/16, CO, 16) bf16.
 //
-// Replaces the TPU kernel medseg/kernels/conv_of.py conv3x3x3_of (_kernel),
-// K1, in modes PLAIN and AFFINE for C_in % 16 == 0 (C_in <= 64) and C_out in
-// {16, 32, 64}; the other calls (fp32, C_in of 1 or 4) keep the CUDA-core
+// Replaces three TPU kernels of medseg/kernels/conv_of.py, one input mode
+// each (channel ci of the conv input, before the zero padding):
+//   - conv3x3x3_of (_kernel), K1:          PLAIN    x[ci]
+//                                          AFFINE   leaky(a*x + b)[ci]
+//     for C_in % 16 == 0 (C_in <= 64), C_out 16, 32 or 64;
+//   - conv3x3x3_of_cat2 (_cat2_kernel), K5: CAT2     [xa ; xb][ci]
+//   - conv3x3x3_of_combine (_combine_kernel), K2:
+//                                  COMBINE  [up ; leaky(ay*y + by + ax*x + bx)][ci]
+//     both with the residual tap, for C/2 % 16 == 0 (C <= 64), C_out = C/2
+//     of the decoder (K5: 32; K2: 16 or 32), x of 1 channel (broadcast) or
+//     C/2.
+// The other calls (fp32, C_in of 1 or 4, K5 at C = 128) keep the CUDA-core
 // kernel of conv_of.cu, picked by the wrapper's shape and dtype predicate.
 //
 // What bounds it on the H100: bytes and operations are close. A 16->16 conv
@@ -31,6 +40,15 @@
 //     cp.async: all slices once per block where they fit in shared memory
 //     (every conv of the main paths), else one slice per step into two
 //     buffers, beside the halo's.
+//   - CAT2 and COMBINE read their slices from two streams: slice s of C/16
+//     comes from the first (xa, up) for s < C/32 and from the second (xb,
+//     y) at channel 16 s - C/2 for the rest, a base pointer per step (the
+//     stream boundary falls on a slice boundary, so no step straddles it).
+//     COMBINE's y slices also load the matching 8 channels of x per item
+//     (or its one channel, broadcast) and apply the prologue in fp32 in the
+//     staging, rounding to bf16 once, as AFFINE's does. x's width is a
+//     template argument (XS): a one-channel x then holds one register per
+//     item between the loads and the store, not four.
 //   - The residual tap is one extra k-step per slice on the centre tap's
 //     A fragments, into accumulators of its own.
 //   - Epilogue per tile: the output goes through shared memory (the halo
@@ -69,12 +87,16 @@ constexpr int OUT_LD = TILE + 8;  // bf16 per channel row of the staged output t
 
 using Halo = BoxStage<HZ, HY, HX, 16, NT>;
 
-enum Mode : int { PLAIN = 0, AFFINE = 1 };
+enum Mode : int { PLAIN = 0, AFFINE = 1, CAT2 = 2, COMBINE = 3 };
 
 struct TcConvArgs {
-  const __nv_bfloat16* x;     // (B, C, D, H, W)
-  const float* a;             // AFFINE: (B, C)
-  const float* b;             // AFFINE: (B, C)
+  const __nv_bfloat16* x;     // PLAIN, AFFINE: x (B, C, D, H, W); CAT2: xa; COMBINE: up
+  const __nv_bfloat16* x1;    // CAT2: xb; COMBINE: y (B, C/2, D, H, W)
+  const __nv_bfloat16* x2;    // COMBINE: x (B, Cx, D, H, W)
+  const float* a;             // AFFINE: a (B, C); COMBINE: ay (B, C/2)
+  const float* b;             // AFFINE: b; COMBINE: by
+  const float* a1;            // COMBINE: ax (B, C/2)
+  const float* b1;            // COMBINE: bx
   const __nv_bfloat16* w;     // (C/16, 27, CO, 16)
   const __nv_bfloat16* wres;  // (C/16, CO, 16) or null
   __nv_bfloat16* out;         // (B, CO, D, H, W)
@@ -83,7 +105,7 @@ struct TcConvArgs {
   __nv_bfloat16* res;
   float* rs;
   float* rss;
-  int B, C, D, H, W;
+  int B, C, Cx, D, H, W;      // Cx: COMBINE's x channels, 1 or C/2
   int ntx, nty, ntz, ntiles;  // tiles along x, y, z; in all
   int resident;               // 1: every slice's weights in shared memory
 };
@@ -202,8 +224,11 @@ __device__ __forceinline__ void finish_output(const float (&acc)[ROWS_PER_WARP][
   }
 }
 
-template <int MODE, bool RES, int CO>
+// XS: COMBINE's x per staged item, 1 (its one channel, broadcast) or 8 (the
+// same 8 channels); 0 in the other modes.
+template <int MODE, bool RES, int CO, int XS>
 __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArgs p) {
+  static_assert((MODE == COMBINE) == (XS != 0), "an x stream in COMBINE only");
   using L = Smem<RES, CO>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_stat = reinterpret_cast<float*>(smem + L::STAT);
@@ -226,13 +251,32 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
     tc::cp_async_commit();
   };
   Halo halo;
+  constexpr bool TWO = MODE == CAT2 || MODE == COMBINE;  // two streams of C/2 channels
+  const int ch = TWO ? p.C / 2 : p.C;  // channels of a stream
+  // slice s: its stream (the second from s = ns / 2 on) and its channel there
+  auto second = [&](int s) { return TWO && 2 * s >= ns; };
+  auto chan = [&](int s) { return 16 * s - (second(s) ? ch : 0); };
   auto load_halo = [&](const Tile& t, int s) {
-    halo.load(p.x + ((long long)t.b * p.C + 16 * s) * V, V, p.D, p.H, p.W, t.z0 - 1, t.y0 - 1,
-              t.x0 - 1);
+    const __nv_bfloat16* xk = (second(s) ? p.x1 : p.x) + ((long long)t.b * ch + chan(s)) * V;
+    if constexpr (MODE == COMBINE) {
+      if (second(s)) {  // y, with x's values at the same items
+        const __nv_bfloat16* xs = p.x2 + ((long long)t.b * p.Cx + (XS == 1 ? 0 : chan(s))) * V;
+        halo.load<XS>(xk, V, p.D, p.H, p.W, t.z0 - 1, t.y0 - 1, t.x0 - 1, xs);
+        return;
+      }
+    }
+    halo.load(xk, V, p.D, p.H, p.W, t.z0 - 1, t.y0 - 1, t.x0 - 1);
   };
   auto store_halo = [&](const Tile& t, int s, int buf) {
-    const int k = t.b * p.C + 16 * s;
-    halo.store<MODE == AFFINE>(smem + buf * Halo::BYTES, p.a + k, p.b + k);
+    unsigned char* dst = smem + buf * Halo::BYTES;
+    const int k = t.b * ch + chan(s);
+    if constexpr (MODE == COMBINE) {
+      if (second(s)) {
+        halo.store_combine<XS>(dst, p.a + k, p.b + k, p.a1 + k, p.b1 + k);
+        return;
+      }
+    }
+    halo.store<MODE == AFFINE>(dst, p.a + k, p.b + k);
   };
 
   float acc[ROWS_PER_WARP][CO / 8][4];
@@ -344,7 +388,7 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
   }
 }
 
-template <int MODE, bool RES, int CO>
+template <int MODE, bool RES, int CO, int XS = 0>
 cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream) {
   using L = Smem<RES, CO>;
   const int ns = p.C / 16;
@@ -355,12 +399,12 @@ cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   p.resident = L::W + ns * L::W_SLICE <= optin;
   const int smem = L::W + (p.resident ? ns : 2) * L::W_SLICE;
-  e = cudaFuncSetAttribute(conv_tc_kernel<MODE, RES, CO>,
+  e = cudaFuncSetAttribute(conv_tc_kernel<MODE, RES, CO, XS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_tc_kernel<MODE, RES, CO>, NT,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_tc_kernel<MODE, RES, CO, XS>,
+                                                    NT, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   p.ntx = (p.W + TX - 1) / TX;
@@ -371,7 +415,7 @@ cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream) {
   p.ntiles = (int)ntiles;
   if (p.ntiles == 0) return cudaSuccess;
   const int grid = p.ntiles < per_sm * sms ? p.ntiles : per_sm * sms;
-  conv_tc_kernel<MODE, RES, CO><<<grid, NT, smem, stream>>>(p);
+  conv_tc_kernel<MODE, RES, CO, XS><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -390,25 +434,50 @@ cudaError_t dispatch_mode(int mode, int residual, const TcConvArgs& p, int devic
   }
 }
 
+// CAT2 and COMBINE, with the residual tap, only at the output widths their
+// routes send (conv_of.TC_MODE_C_OUT), COMBINE for either width of x: each
+// unrolled instantiation adds to the build time.
+cudaError_t dispatch_two(int mode, int c_out, const TcConvArgs& p, int device, cudaStream_t st) {
+  const bool one = p.Cx == 1;
+  if (mode == CAT2 && c_out == 32) return launch<CAT2, true, 32>(p, device, st);
+  if (mode == COMBINE && c_out == 16)
+    return one ? launch<COMBINE, true, 16, 1>(p, device, st)
+               : launch<COMBINE, true, 16, 8>(p, device, st);
+  if (mode == COMBINE && c_out == 32)
+    return one ? launch<COMBINE, true, 32, 1>(p, device, st)
+               : launch<COMBINE, true, 32, 8>(p, device, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace medseg
 
 extern "C" {
 
 // Returns a cudaError_t value: 0 when the kernel was launched. mode 0:
-// PLAIN, 1: AFFINE; C a multiple of 16 up to 64; c_out 16, 32 or 64.
-int medseg_conv_tc(int device, int mode, int residual, int c_out, const void* x, const float* a,
-                   const float* b, const void* w, const void* wres, void* out, float* s, float* ss,
-                   void* res, float* rs, float* rss, int B, int C, int D, int H, int W,
-                   void* stream) {
+// PLAIN, 1: AFFINE (x0, a0, b0), C a multiple of 16 up to 64, c_out 16, 32
+// or 64; 2: CAT2 (x0, x1), 3: COMBINE (x0, x1, x2, a0, b0, a1, b1; Cx 1 or
+// C/2), both with the residual tap, C 32 or 64, c_out as dispatch_two.
+int medseg_conv_tc(int device, int mode, int residual, int c_out, const void* x0, const void* x1,
+                   const void* x2, const float* a0, const float* b0, const float* a1,
+                   const float* b1, const void* w, const void* wres, void* out, float* s,
+                   float* ss, void* res, float* rs, float* rss, int B, int C, int Cx, int D,
+                   int H, int W, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (C < 16 || C > 64 || C % 16 != 0) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  const medseg::TcConvArgs p{static_cast<const bf*>(x), a, b, static_cast<const bf*>(w),
-                             static_cast<const bf*>(wres), static_cast<bf*>(out), s, ss,
-                             static_cast<bf*>(res), rs, rss, B, C, D, H, W, 0, 0, 0, 0, 0};
+  const medseg::TcConvArgs p{static_cast<const bf*>(x0), static_cast<const bf*>(x1),
+                             static_cast<const bf*>(x2), a0, b0, a1, b1,
+                             static_cast<const bf*>(w), static_cast<const bf*>(wres),
+                             static_cast<bf*>(out), s, ss, static_cast<bf*>(res), rs, rss,
+                             B, C, Cx, D, H, W, 0, 0, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == medseg::CAT2 || mode == medseg::COMBINE) {
+    if (!residual || C % 32 != 0 || (mode == medseg::COMBINE && Cx != 1 && Cx != C / 2))
+      return (int)cudaErrorInvalidValue;
+    return (int)medseg::dispatch_two(mode, c_out, p, device, st);
+  }
   switch (c_out) {
     case 16:
       return (int)medseg::dispatch_mode<16>(mode, residual, p, device, st);

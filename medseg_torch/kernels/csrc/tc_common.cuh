@@ -1,7 +1,7 @@
 // Building blocks of the tensor-core conv kernels (conv_tc.cu, wgrad_tc.cu):
-// channels-last bf16 staging of an NCDHW box in shared memory, its swizzle,
-// and the PTX of ldmatrix, mma.sync m16n8k16 (bf16 in, fp32 sums) and
-// cp.async.
+// channels-last bf16 staging of an NCDHW box in shared memory (with the
+// AFFINE and COMBINE prologues), its swizzle, and the PTX of ldmatrix,
+// mma.sync m16n8k16 (bf16 in, fp32 sums) and cp.async.
 //
 // Staging. A box of voxels is held in shared memory as rows of CH bf16
 // channels (CH * 2 bytes, a multiple of 32), one row per voxel, voxels in
@@ -77,14 +77,28 @@ __device__ __forceinline__ uint32_t affine_pair(uint32_t w, float a0, float b0, 
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// leaky(ay * y + by + ax * x + bx) of both bf16 halves of y and x (channels
+// 0 and 1 of the coefficients), rounded back to bf16 (the COMBINE prologue,
+// applied once per staged value).
+__device__ __forceinline__ uint32_t combine_pair(uint32_t y, uint32_t x, float ay0, float by0,
+                                                 float ax0, float bx0, float ay1, float by1,
+                                                 float ax1, float bx1) {
+  const float ylo = __uint_as_float(y << 16), yhi = __uint_as_float(y & 0xffff0000u);
+  const float xlo = __uint_as_float(x << 16), xhi = __uint_as_float(x & 0xffff0000u);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(leaky(ylo * ay0 + by0 + xlo * ax0 + bx0),
+                                                 leaky(yhi * ay1 + by1 + xhi * ax1 + bx1));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // Stages the NCDHW box [z0, z0+BZ) x [y0, y0+BY) x [x0, x0+BX) of CH
 // channels channels-last in shared memory, in two steps so that a caller
 // can overlap the global loads with its MMAs: ``load`` issues the loads into
-// registers, ``store`` (optionally applying the AFFINE prologue) writes the
-// swizzled rows. The box may reach outside the volume (a halo): those
-// voxels are staged as 0, in the transformed space. One item is one 8-channel
-// chunk of one voxel; neighbouring threads take neighbouring voxels, so each
-// of the 8 loads of an item is coalesced along x.
+// registers, ``store`` (optionally applying the AFFINE prologue) or
+// ``store_combine`` (the COMBINE prologue) writes the swizzled rows. The box
+// may reach outside the volume (a halo): those voxels are staged as 0, in
+// the transformed space. One item is one 8-channel chunk of one voxel;
+// neighbouring threads take neighbouring voxels, so each of the 8 loads of
+// an item is coalesced along x.
 template <int BZ, int BY, int BX, int CH, int NT>
 struct BoxStage {
   static constexpr int NVOX = BZ * BY * BX;
@@ -95,17 +109,33 @@ struct BoxStage {
   static_assert(CH % 16 == 0 && PER <= 32, "rows of 16-channel multiples, a 32-bit valid mask");
 
   uint4 raw[PER];
-  uint32_t valid;  // bit k: item k lies inside the volume
+  uint4 xraw[PER];     // COMBINE, x of the same channels: its values at the same items
+  uint32_t xone[PER];  // COMBINE, x of one channel: its value at each item's voxel
+  uint32_t valid;      // bit k: item k lies inside the volume
+
+  __device__ __forceinline__ static uint4 pack(const uint32_t (&h)[8]) {
+    return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+                      h[6] | (h[7] << 16));
+  }
 
   // x: channel 0 of the box's (b, c0) in an NCDHW tensor; V = D * H * W.
   // Every item's 8 loads are issued without a branch (an item outside the
   // volume reads channel 0..7 of voxel 0 of the box's plane, a valid
   // address, and is masked to 0 afterwards), so that all PER * 8 loads can
-  // be in flight together.
+  // be in flight together. XS: COMBINE's x stream, loaded beside at the same
+  // items: 0 none; 8 the same 8 channels of ``xs`` (the x tensor at the
+  // box's channel 0) into ``xraw``; 1 its one channel (``xs``: the x tensor
+  // at its channel 0) into ``xone``, one load per item, broadcast to all 8
+  // channels by the prologue.
+  template <int XS = 0>
   __device__ __forceinline__ void load(const __nv_bfloat16* x, long long V, int D, int H, int W,
-                                       int z0, int y0, int x0) {
+                                       int z0, int y0, int x0,
+                                       const __nv_bfloat16* xs = nullptr) {
+    static_assert(XS == 0 || XS == 1 || XS == 8, "x stream: none, one channel or 8 channels");
     const unsigned short* src = reinterpret_cast<const unsigned short*>(x);
+    const unsigned short* xsrc = reinterpret_cast<const unsigned short*>(xs);
     const unsigned short* q[PER];
+    const unsigned short* xq[PER];
     valid = 0;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
@@ -116,7 +146,10 @@ struct BoxStage {
       const int gz = z0 + vz, gy = y0 + vy, gx = x0 + vx;
       const bool ok =
           i < ITEMS && gz >= 0 && gz < D && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      q[k] = ok ? src + (long long)c * 8 * V + ((long long)gz * H + gy) * W + gx : src;
+      const long long vox = ((long long)gz * H + gy) * W + gx;
+      q[k] = ok ? src + (long long)c * 8 * V + vox : src;
+      if constexpr (XS != 0)
+        xq[k] = ok ? xsrc + (XS == 8 ? (long long)c * 8 * V : 0LL) + vox : xsrc;
       valid |= ok ? 1u << k : 0u;
     }
     uint32_t h[PER][8];
@@ -124,10 +157,22 @@ struct BoxStage {
     for (int k = 0; k < PER; ++k)
 #pragma unroll
       for (int j = 0; j < 8; ++j) h[k][j] = __ldg(q[k] + j * V);
+    if constexpr (XS == 8) {
+      uint32_t g[PER][8];
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g[k][j] = __ldg(xq[k] + j * V);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) xraw[k] = pack(g[k]);
+    }
+    if constexpr (XS == 1) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) xone[k] = __ldg(xq[k]);
+    }
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      raw[k] = make_uint4(h[k][0] | (h[k][1] << 16), h[k][2] | (h[k][3] << 16),
-                          h[k][4] | (h[k][5] << 16), h[k][6] | (h[k][7] << 16));
+      raw[k] = pack(h[k]);
       if (!(valid & (1u << k))) raw[k] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -152,6 +197,51 @@ struct BoxStage {
             w.z = affine_pair(w.z, a1.x, b1.x, a1.y, b1.y);
             w.w = affine_pair(w.w, a1.z, b1.z, a1.w, b1.w);
           }
+        }
+        *reinterpret_cast<uint4*>(dst + swz<CH * 2>(v, c)) = w;
+      }
+    }
+  }
+
+  // COMBINE: leaky(ay * y + by + ax * x + bx) of the loaded values (y) and
+  // the x stream's (``load<XS>``, XS 1 or 8), per channel coefficients as in
+  // ``store``. Items outside the volume stay 0: the mask comes before the
+  // prologue, whose value at y = x = 0 is not 0.
+  template <int XS>
+  __device__ __forceinline__ void store_combine(unsigned char* dst, const float* ay,
+                                                const float* by, const float* ax,
+                                                const float* bx) const {
+    static_assert(XS == 1 || XS == 8, "x stream: one channel or 8 channels");
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = threadIdx.x + k * NT;
+      if (i < ITEMS) {
+        const int c = i / NVOX, v = i - c * NVOX;
+        uint4 w = raw[k];
+        if (valid & (1u << k)) {
+          uint4 xv;
+          if constexpr (XS == 1) {  // both bf16 halves of each word: x's one channel
+            const uint32_t x2 = xone[k] | (xone[k] << 16);
+            xv = make_uint4(x2, x2, x2, x2);
+          } else {
+            xv = xraw[k];
+          }
+          float4 ya[2], yb[2], xa[2], xb[2];  // the chunk's 8 channels, four at a time
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            ya[q] = __ldg(reinterpret_cast<const float4*>(ay + c * 8) + q);
+            yb[q] = __ldg(reinterpret_cast<const float4*>(by + c * 8) + q);
+            xa[q] = __ldg(reinterpret_cast<const float4*>(ax + c * 8) + q);
+            xb[q] = __ldg(reinterpret_cast<const float4*>(bx + c * 8) + q);
+          }
+          w.x = combine_pair(w.x, xv.x, ya[0].x, yb[0].x, xa[0].x, xb[0].x, ya[0].y, yb[0].y,
+                             xa[0].y, xb[0].y);
+          w.y = combine_pair(w.y, xv.y, ya[0].z, yb[0].z, xa[0].z, xb[0].z, ya[0].w, yb[0].w,
+                             xa[0].w, xb[0].w);
+          w.z = combine_pair(w.z, xv.z, ya[1].x, yb[1].x, xa[1].x, xb[1].x, ya[1].y, yb[1].y,
+                             xa[1].y, xb[1].y);
+          w.w = combine_pair(w.w, xv.w, ya[1].z, yb[1].z, xa[1].z, xb[1].z, ya[1].w, yb[1].w,
+                             xa[1].w, xb[1].w);
         }
         *reinterpret_cast<uint4*>(dst + swz<CH * 2>(v, c)) = w;
       }

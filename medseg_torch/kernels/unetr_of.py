@@ -20,6 +20,15 @@ the sums into the next norm's affine, applied in the next kernel's
 prologue. Conv biases cancel under instance norm and are never read. The
 chain's weights are cast to the compute dtype once per model
 (``fused_weights``) and passed to every forward.
+
+``fast_path_supported`` is the serving predicate (the counterpart of the JAX
+``fast_path_supported_v2``): the chain is correct for the model, and on a
+CUDA device the window is a cube of at least ``MIN_ROI`` and every kernel of
+the chain has the widths of the model's feature size, input channels,
+classes and compute dtype (``conv_of``'s width table). The ``Validator``
+serves the module forward where it is false; ``fast_apply_v3`` itself runs
+the module forward where the chain is not correct or, on the card, a
+kernel lacks a width, so that no width ever raises.
 """
 
 from __future__ import annotations
@@ -32,13 +41,18 @@ from medseg_torch.kernels.conv_of import (
     conv3x3x3_of,
     conv3x3x3_of_cat2,
     conv3x3x3_of_combine,
+    conv_has_kernel,
     norm_affine_from_stats,
+    outhead_has_kernel,
     outhead_of,
+    outhead_row_has_kernel,
     outhead_row_of,
     overlap_add_plain,
 )
 from medseg_torch.models.blocks import leaky_relu
 from medseg_torch.models.unetr import UNETR
+
+MIN_ROI = 48  # smallest window edge served by the chain on the card (the JAX predicate's)
 
 
 def _chain_correct(model: UNETR, x_shape) -> bool:
@@ -47,6 +61,37 @@ def _chain_correct(model: UNETR, x_shape) -> bool:
     has no conv3 (its residual is x verbatim), and ``res_block=False`` has
     no residual at all — those route to the plain forward."""
     return model.res_block and x_shape[1] != model.feature_size
+
+
+def chain_has_kernels(model: UNETR, c_in: int) -> bool:
+    """Whether every kernel of the chain has the widths of ``model`` (its
+    feature size, classes and compute dtype) at ``c_in`` input channels:
+    enc1.conv1 (K1, C_in -> FS, with the conv3 tap for C_in > 1), enc1.conv2
+    and dec2.conv2 (K1, FS -> FS), dec3.conv1 (K5, 4 FS -> 2 FS), dec3.conv2
+    (K1, 2 FS -> 2 FS), dec2.conv1 (K2, 2 FS -> FS) and the out head of
+    either walk (K3, K4)."""
+    fs, dt = model.feature_size, model.dtype or torch.float32
+    k_pad = class_pad(model.out_channels)
+    return (conv_has_kernel("plain", c_in, fs, dt)
+            and conv_has_kernel("affine_leaky", fs, fs, dt)
+            and conv_has_kernel("cat2", 4 * fs, 2 * fs, dt)
+            and conv_has_kernel("affine_leaky", 2 * fs, 2 * fs, dt)
+            and conv_has_kernel("combine", 2 * fs, fs, dt)
+            and outhead_has_kernel(fs) and outhead_row_has_kernel(fs, k_pad))
+
+
+def fast_path_supported(model: UNETR, x_shape, device) -> bool:
+    """Whether the fused chain serves windows of ``x_shape`` (B, C_in, D, H,
+    W) on ``device``: the chain is correct for the model and, on a CUDA
+    device, the window is a cube of at least ``MIN_ROI`` and every kernel of
+    the chain has the widths (``chain_has_kernels``). On the CPU the chain
+    runs the kernels' plain versions, which take every width and size."""
+    if not _chain_correct(model, x_shape):
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    _, c_in, d, h, w = x_shape
+    return d == h == w >= MIN_ROI and chain_has_kernels(model, c_in)
 
 
 def class_pad(n_classes: int) -> int:
@@ -155,7 +200,8 @@ def fast_apply_v3(
     dtype = model.dtype or torch.float32
     if (acc is None) != (starts is None) or (acc is not None and out_scale is None):
         raise ValueError("the accumulating exit takes acc, starts and out_scale together")
-    if not _chain_correct(model, x.shape):
+    widths_ok = not x.is_cuda or chain_has_kernels(model, x.shape[1])
+    if not (_chain_correct(model, x.shape) and widths_ok):
         out = model(x, return_encoder_features=False)
         if out_scale is not None:
             out = out * out_scale

@@ -11,12 +11,13 @@ a bias, as the flax blocks do, so the parameter sets are identical.
 Each block takes a compute ``dtype`` as the flax blocks do: parameters stay
 fp32, each layer casts its operands (and its bias) to ``dtype`` (None: the
 promoted type of input and parameters), norms compute fp32 statistics and
-return their input's dtype. With gradients enabled, a 3x3x3 conv whose shape
-``kernels.conv3d.train_route`` accepts runs through ``Conv3x3x3Fn`` (K1
-forward and data gradient, K6 filter gradient), its output rounded to the
-compute dtype before the bias, as the JAX routed conv does. With or without
-gradients, a 3x3x3 conv that ``kernels.conv3d.flat_route`` accepts runs
-through ``FlatConvFn`` (K9 forward, fp32 out), rounded the same way.
+return their input's dtype. With gradients enabled, a 3x3x3 conv whose shape,
+dtype and device ``kernels.conv3d.train_route`` accepts runs through
+``Conv3x3x3Fn`` (K1 forward and data gradient, K6 filter gradient), its
+output rounded to the compute dtype before the bias, as the JAX routed conv
+does. With or without gradients, a 3x3x3 conv that
+``kernels.conv3d.flat_route`` accepts runs through ``FlatConvFn`` (K9
+forward, fp32 out), rounded the same way.
 """
 
 from __future__ import annotations
@@ -79,9 +80,10 @@ class Conv3d(nn.Module):
         x = x.to(dt)
         weight, bias = self.conv.weight.to(dt), self.conv.bias.to(dt)
         c_out, _, k = weight.shape[:3]
-        if k == 3 and torch.is_grad_enabled() and conv3d.train_route(x.shape, c_out):
+        if k == 3 and torch.is_grad_enabled() and conv3d.train_route(
+                x.shape, c_out, dt, input_grad=x.requires_grad, device=x.device):
             return conv3d.conv3x3x3(x, weight) + bias.view(1, -1, 1, 1, 1)
-        if k == 3 and conv3d.flat_route(x.shape, c_out):
+        if k == 3 and conv3d.flat_route(x.shape, c_out, device=x.device):
             return conv3d.conv3x3x3_flat(x, weight).to(dt) + bias.view(1, -1, 1, 1, 1)
         return F.conv3d(x, weight, bias, padding=self.conv.padding)
 

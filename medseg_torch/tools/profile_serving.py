@@ -40,9 +40,12 @@ OUT_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
 
 _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3_of_cat2",
               "3": "K2 conv3x3x3_of_combine"}
+# the conv's template arguments begin with its input mode (conv_of.cu: after
+# the dtype); conv_tc.cu's kernels are the same modes on the tensor cores
+_CONV_KERNEL = re.compile(r"conv3_kernel<[^,]+,\s*(?:\([^)]*\))?(\d)")
+_CONV_TC_KERNEL = re.compile(r"conv_tc_kernel<\s*(?:\([^)]*\))?(\d)")
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
-    # K1 and K6 on the tensor cores; their CUDA-core route keeps the plain names
-    ("K1 conv3x3x3_of, tensor cores", re.compile(r"conv_tc_kernel")),
+    # K6 on the tensor cores; its CUDA-core route keeps the plain names
     ("K6 conv3x3x3_wgrad_of, tensor cores", re.compile(r"wgrad_tc_(reduce_)?kernel")),
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
     ("K4 outhead_row_of", re.compile(r"outhead_row_kernel")),
@@ -60,9 +63,12 @@ _CLASSES = (  # (class, pattern on the kernel's name), first match wins
 
 
 def kernel_class(name: str) -> str:
-    m = re.search(r"conv3_kernel<[^,]+,\s*(?:\([^)]*\))?(\d)", name)
+    m = _CONV_KERNEL.search(name)
     if m:
         return _CONV_MODE[m.group(1)]
+    m = _CONV_TC_KERNEL.search(name)
+    if m:
+        return f"{_CONV_MODE[m.group(1)]}, tensor cores"
     for cls, pattern in _CLASSES:
         if pattern.search(name):
             return cls

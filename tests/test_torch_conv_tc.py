@@ -1,23 +1,28 @@
-"""The tensor-core routes of K1 and K6 (``medseg_torch/kernels/csrc/conv_tc.cu``
-and ``wgrad_tc.cu``) on the CPU, where no CUDA kernel runs.
+"""The tensor-core routes of K1, K2, K5 and K6 (``medseg_torch/kernels/csrc/
+conv_tc.cu`` and ``wgrad_tc.cu``) on the CPU, where no CUDA kernel runs.
 
-- The route predicates (``conv_of.tc_route``, ``conv_of.wgrad_tc_route``),
-  checked exactly over a table of (C_in, C_out, dtype).
+- The route predicates (``conv_of.tc_route`` in each mode,
+  ``conv_of.wgrad_tc_route``), checked exactly over a table of (C_in, C_out,
+  dtype).
 - A numpy emulation of each kernel's GEMM order, built from what the wrapper
   hands the kernel (``pack_tc_weight``, ``pack_tc_wres``, ``TC_TILE``,
-  ``wgrad_tc_groups``) and a channels-last halo: for K1, per voxel tile, the
-  sums over 16-channel slices and the 27 taps of (256 voxel rows x 16) @ (16
-  x C_out) products, the residual tap on the centre tap's rows; for K6, per
-  slice and tile group, the (tap, ci) columns summed over x-rows of 16
-  voxels, then the groups' partials in group order. Both are held to the
-  JAX package's Pallas kernels in interpret mode on the same seeded numpy
-  inputs, in fp32: relative 1e-4 of the largest reference value (only the
-  order of the sums differs).
+  ``wgrad_tc_groups``) and a channels-last halo: for the conv, the staged
+  input slice by slice (K5: the slices of xa, then those of xb; K2: those of
+  up, then those of y through the COMBINE prologue with the same channels of
+  x, or its one channel), then per voxel tile the sums over 16-channel
+  slices and the 27 taps of (256 voxel rows x 16) @ (16 x C_out) products,
+  the residual tap on the centre tap's rows; for K6, per slice and tile
+  group, the (tap, ci) columns summed over x-rows of 16 voxels, then the
+  groups' partials in group order. All are held to the JAX package's Pallas
+  kernels in interpret mode on the same seeded numpy inputs, in fp32:
+  relative 1e-4 of the largest reference value (only the order of the sums
+  differs).
 
-Volumes are ragged against the 2x8x16 (z, y, x) tile. K1 runs at 5x9x12; the
-JAX wgrad kernel takes compact rows only (H*W a multiple of 128), so K6 runs
-at 5x16x8 (W below the tile's 16, D odd). The kernels themselves are held
-to their plain versions on the card (``tests/test_torch_kernels_cuda.py``).
+Volumes are ragged against the 2x8x16 (z, y, x) tile. The conv runs at
+5x9x12; the JAX wgrad kernel takes compact rows only (H*W a multiple of
+128), so K6 runs at 5x16x8 (W below the tile's 16, D odd). The kernels
+themselves are held to their plain versions on the card
+(``tests/test_torch_kernels_cuda.py``).
 """
 
 import itertools
@@ -30,6 +35,8 @@ import torch
 from medseg.kernels.conv3d import weight_matrix
 from medseg.kernels.conv_of import (
     conv3x3x3_of,
+    conv3x3x3_of_cat2,
+    conv3x3x3_of_combine,
     conv3x3x3_wgrad_of,
     from_output_form,
     res_weight,
@@ -58,6 +65,30 @@ ROUTES = [  # (C_in, C_out, dtype, tensor cores)
 def test_route_predicates(c_in, c_out, dtype, tc):
     assert tconv.tc_route(c_in, c_out, dtype) is tc
     assert tconv.wgrad_tc_route(c_in, c_out, dtype) is tc
+
+
+TWO_STREAM_ROUTES = [  # (mode, C = both halves, C_out, dtype, tensor cores)
+    ("cat2", 64, 32, BF, True),  # K5 at feature size 16
+    ("combine", 32, 16, BF, True), ("combine", 64, 32, BF, True),  # K2 at 16 and 32
+    ("cat2", 64, 32, F32, False), ("combine", 32, 16, F32, False),
+    ("cat2", 128, 64, BF, False),  # K5 at feature size 32: C above TC_MAX_C
+    ("combine", 128, 64, BF, False),
+    ("cat2", 32, 16, BF, False), ("cat2", 64, 64, BF, False),  # C_out not instantiated
+    ("combine", 64, 16, BF, True), ("combine", 32, 64, BF, False),
+    ("cat2", 48, 32, BF, False), ("combine", 48, 24, BF, False),  # halves of 24
+    ("combine", 16, 16, BF, False),  # halves of 8
+    ("combine", 32, 16, torch.float16, False),
+]
+
+
+@pytest.mark.parametrize("mode,c,c_out,dtype,tc", TWO_STREAM_ROUTES)
+def test_two_stream_route_predicates(mode, c, c_out, dtype, tc):
+    """K5 and K2 take the tensor cores in bf16 where both halves of their
+    input are whole 16-channel slices (C <= 64) and C_out is instantiated;
+    the CUDA-core kernel still has every such width but C_out 48 or 128."""
+    assert tconv.tc_route(c, c_out, dtype, mode) is tc
+    has = dtype in (F32, BF) and (tc or c_out in (16, 32, 64))
+    assert tconv.conv_has_kernel(mode, c, c_out, dtype) is has
 
 
 def _t(x):
@@ -99,14 +130,49 @@ def _bc(t):
     return t.double().numpy()[..., None, None, None]
 
 
+def _leaky(v):
+    return np.where(v >= 0, v, LEAKY_SLOPE * v)
+
+
 def emulate_conv_tc(x, weight, a=None, b=None, wres=None):
-    """K1's tensor-core GEMM order: per (b, tile), the A rows of tap t are
-    the tile's 256 voxels shifted by t in the slice's staged halo; B is the
-    packed weight of (slice, tap). Returns (out, s, ss[, res, rs, rss])."""
+    """K1's tensor-core GEMM order (``_emulate_gemm``) on x, through the
+    AFFINE prologue where ``a`` is given."""
     xt = x.double().numpy()
     if a is not None:  # the prologue, applied once per staged value
-        xt = xt * _bc(a) + _bc(b)
-        xt = np.where(xt >= 0, xt, LEAKY_SLOPE * xt)
+        xt = _leaky(xt * _bc(a) + _bc(b))
+    return _emulate_gemm(xt, weight, wres)
+
+
+def stage_two_streams(first, second, x=None, ay=None, by=None, ax=None, bx=None):
+    """The staged input of K5 (``x`` None) or K2, slice by slice as the
+    kernel loads it: slice s of C/16 from ``first`` (xa, up) for s < C/32,
+    else from ``second`` (xb, y) at channel 16 s - C/2; K2's second-stream
+    values through leaky(ay*y + by + ax*x + bx) with x's same 16 channels
+    or its one channel, broadcast."""
+    first, second = first.double().numpy(), second.double().numpy()
+    half = first.shape[1]
+    ns = 2 * half // SL
+    slices = []
+    for s in range(ns):
+        if s < ns // 2:
+            slices.append(first[:, SL * s : SL * (s + 1)])
+            continue
+        ch = slice(SL * s - half, SL * (s + 1) - half)
+        v = second[:, ch]
+        if x is not None:
+            xv = x.double().numpy()
+            xv = xv[:, :1] if xv.shape[1] == 1 else xv[:, ch]
+            v = _leaky(v * _bc(ay[:, ch]) + _bc(by[:, ch]) + xv * _bc(ax[:, ch]) + _bc(bx[:, ch]))
+        slices.append(v)
+    return np.concatenate(slices, axis=1)
+
+
+def _emulate_gemm(xt, weight, wres=None):
+    """The tensor-core conv's GEMM order on the staged input ``xt`` (B, C,
+    D, H, W): per (b, tile), the A rows of tap t are the tile's 256 voxels
+    shifted by t in the slice's staged halo (0 outside the volume, after any
+    prologue); B is the packed weight of (slice, tap). Returns (out, s,
+    ss[, res, rs, rss])."""
     bsz, c, d, h, w = xt.shape
     c_out = weight.shape[0]
     packed = tconv.pack_tc_weight(weight).double().numpy()  # (C/16, 27, CO, 16)
@@ -200,6 +266,62 @@ def test_conv_tc_order_matches_pallas(c_in, c_out, act, residual):
             _close(g.transpose(0, 2, 3, 4, 1), from_output_form(r, h, w))
         else:
             _close(g, np.asarray(r)[..., 0])
+
+
+def _check_conv_outputs(got, ref, h, w):
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if i % 3 == 0:
+            _close(g.transpose(0, 2, 3, 4, 1), from_output_form(r, h, w))
+        else:
+            _close(g, np.asarray(r)[..., 0])
+
+
+def _two_stream_inputs(rng, c, c_out, bsz=2, d=5, h=9, w=12):
+    half = c // 2
+    xa, xb = (rng.normal(size=(bsz, d, h, w, half)).astype(np.float32) for _ in range(2))
+    k = (rng.normal(size=(3, 3, 3, c, c_out)) * (27 * c) ** -0.5).astype(np.float32)
+    k3 = (rng.normal(size=(1, 1, 1, c, c_out)) * c**-0.5).astype(np.float32)
+    return xa, xb, k, k3
+
+
+@pytest.mark.parametrize("c,c_out", [(64, 32), (32, 16)])
+def test_cat2_tc_order_matches_pallas(c, c_out):
+    """K5's tensor-core staging (the slices of xa, then of xb) and GEMM order
+    against ``conv3x3x3_of_cat2`` (interpret), two batch elements."""
+    rng = np.random.default_rng(c * 10 + c_out)
+    xa, xb, k, k3 = _two_stream_inputs(rng, c, c_out)
+    h, w = xa.shape[2:4]
+    ref = conv3x3x3_of_cat2(
+        to_output_form(jnp.asarray(xa)), to_output_form(jnp.asarray(xb)),
+        weight_matrix(jnp.asarray(k), jnp.float32), res_weight(jnp.asarray(k3), jnp.float32),
+        h=h, w=w, out_dtype=jnp.float32, interpret=True,
+    )
+    got = _emulate_gemm(stage_two_streams(_t(xa), _t(xb)), _tw(k), _tw(k3))
+    _check_conv_outputs(got, ref, h, w)
+
+
+@pytest.mark.parametrize("c,c_out,x_channels", [(32, 16, 1), (32, 16, 16), (64, 32, 1),
+                                                (64, 32, 32)])
+def test_combine_tc_order_matches_pallas(c, c_out, x_channels):
+    """K2's tensor-core staging (the slices of up, then those of y through
+    the COMBINE prologue with x's channels, or its one channel broadcast)
+    and GEMM order against ``conv3x3x3_of_combine`` (interpret)."""
+    rng = np.random.default_rng(c * 10 + c_out + x_channels)
+    up, y, k, k3 = _two_stream_inputs(rng, c, c_out)
+    bsz, _, h, w, half = up.shape
+    x1 = rng.normal(size=up.shape[:4] + (x_channels,)).astype(np.float32)
+    aff = [(rng.random((bsz, half, 1)) + 0.5).astype(np.float32) if i % 2 == 0
+           else (0.5 * rng.normal(size=(bsz, half, 1))).astype(np.float32) for i in range(4)]
+    ref = conv3x3x3_of_combine(
+        to_output_form(jnp.asarray(up)), to_output_form(jnp.asarray(y)),
+        to_output_form(jnp.asarray(x1)), *map(jnp.asarray, aff),
+        weight_matrix(jnp.asarray(k), jnp.float32), res_weight(jnp.asarray(k3), jnp.float32),
+        h=h, w=w, out_dtype=jnp.float32, interpret=True,
+    )
+    staged = stage_two_streams(_t(up), _t(y), _t(x1),
+                               *(torch.from_numpy(a[..., 0]) for a in aff))
+    _check_conv_outputs(_emulate_gemm(staged, _tw(k), _tw(k3)), ref, h, w)
 
 
 @pytest.mark.parametrize("c,c_out,groups", [(16, 16, 1), (32, 16, 3), (16, 32, 4), (32, 64, 2)])

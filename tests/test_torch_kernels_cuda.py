@@ -7,8 +7,9 @@ there with:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Small shapes (2 x 16^3 and 8^3 volumes; K1's and K6's tensor-core routes
-at a 9x17x18 volume, ragged against their 2x8x16 tile); ``chip_smoke.py``
+Small shapes (2 x 16^3 and 8^3 volumes; the tensor-core routes of K1, K2,
+K5 and K6 at a 9x17x18 volume, ragged against their 2x8x16 tile);
+``chip_smoke.py``
 repeats the comparisons at the serving path's, the training step's and the
 pretraining path's full shapes. Tolerances are those of
 ``medseg_torch.kernels.kernel_check``.
@@ -214,10 +215,67 @@ def test_tc_routes_walk_many_tiles(device, c_in, c_out):
     assert conv_of.conv3x3x3_of.tc_launches == conv_of.conv3x3x3_wgrad_of.tc_launches == 1
 
 
+@pytest.mark.parametrize("mode,c,c_out,x_channels", [
+    ("cat2", 64, 32, 0), ("combine", 32, 16, 1), ("combine", 32, 16, 16), ("combine", 64, 32, 1),
+    ("combine", 64, 32, 32),
+], ids=["cat2-64-32", "combine-32-16-x1", "combine-32-16-x16", "combine-64-32-x1",
+        "combine-64-32-x32"])
+def test_tc_two_stream_modes_match_plain(device, mode, c, c_out, x_channels):
+    """K5 (cat2) and K2 (combine, x of 1 or C/2 channels) on the tensor-core
+    route against their plain versions at a ragged volume, two batch
+    elements (the statistics leave per element)."""
+    g = torch.Generator().manual_seed(c * 100 + c_out + x_channels)
+    bf = torch.bfloat16
+    half = c // 2
+
+    def vol(ch):
+        return _randn(g, 2, ch, *TC_VOLUME).to(device, bf)
+
+    def affine():
+        return ((torch.rand((2, half), generator=g) + 0.5).to(device),
+                _randn(g, 2, half, scale=0.5).to(device))
+
+    w = _randn(g, c_out, c, 3, 3, 3, scale=(27 * c) ** -0.5).to(device, bf)
+    wres = _randn(g, c_out, c, 1, 1, 1, scale=c ** -0.5).to(device, bf)
+    if mode == "cat2":
+        case = kernel_check.Case("tc cat2", conv_of.conv3x3x3_of_cat2,
+                                 conv_of.conv3x3x3_of_cat2_plain, (vol(half), vol(half), w, wres))
+    else:
+        case = kernel_check.Case(
+            "tc combine", conv_of.conv3x3x3_of_combine, conv_of.conv3x3x3_of_combine_plain,
+            (vol(half), vol(half), vol(x_channels), *affine(), *affine(), w, wres))
+    assert conv_of.tc_route(c, c_out, bf, mode)
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert case.kernel.launches == case.kernel.tc_launches == 1
+
+
+def test_tc_two_stream_modes_walk_many_tiles(device):
+    """K2 with a 1-channel x over 675 tiles of three batch elements: the
+    persistent blocks cross batch elements and both streams."""
+    g = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    vol = (30, 40, 33)
+    up, y = (_randn(g, 3, 16, *vol).to(device, bf) for _ in range(2))
+    x1 = _randn(g, 3, 1, *vol).to(device, bf)
+    aff = [(torch.rand((3, 16), generator=g) + 0.5).to(device) if i % 2 == 0
+           else _randn(g, 3, 16, scale=0.5).to(device) for i in range(4)]
+    w = _randn(g, 16, 32, 3, 3, 3, scale=(27 * 32) ** -0.5).to(device, bf)
+    wres = _randn(g, 16, 32, 1, 1, 1, scale=32 ** -0.5).to(device, bf)
+    case = kernel_check.Case("tc combine", conv_of.conv3x3x3_of_combine,
+                             conv_of.conv3x3x3_of_combine_plain, (up, y, x1, *aff, w, wres))
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert conv_of.conv3x3x3_of_combine.tc_launches == 1
+
+
 def test_routes_count_tc_launches(device):
     """bf16 with C_in % 16 == 0 takes the tensor cores, one launch even at
     64 output channels; fp32 and C_in = 1 take the CUDA cores (64 wide: two
-    launches)."""
+    launches). K5 and K2 take the tensor cores in bf16 at the decoder's
+    widths, the CUDA cores in fp32 and at C = 128 (K5 at feature size 32)."""
     def conv(c_in, c_out, dtype):
         x = torch.randn(1, c_in, 4, 8, 8, device=device, dtype=dtype)
         conv_of.conv3x3x3_of(x, torch.randn(c_out, c_in, 3, 3, 3, device=device, dtype=dtype))
@@ -226,13 +284,34 @@ def test_routes_count_tc_launches(device):
         x = torch.randn(1, c, 4, 8, 8, device=device, dtype=dtype)
         conv_of.conv3x3x3_wgrad_of(x, torch.randn(1, c_out, 4, 8, 8, device=device, dtype=dtype))
 
+    def rand(*shape, dtype):
+        return torch.randn(*shape, device=device, dtype=dtype)
+
+    def cat2(c_in, c_out, dtype):
+        h = c_in // 2
+        conv_of.conv3x3x3_of_cat2(
+            rand(1, h, 4, 8, 8, dtype=dtype), rand(1, h, 4, 8, 8, dtype=dtype),
+            rand(c_out, c_in, 3, 3, 3, dtype=dtype), rand(c_out, c_in, 1, 1, 1, dtype=dtype))
+
+    def combine(c_in, c_out, dtype):
+        h = c_in // 2
+        aff = [torch.rand(1, h, device=device) for _ in range(4)]
+        conv_of.conv3x3x3_of_combine(
+            rand(1, h, 4, 8, 8, dtype=dtype), rand(1, h, 4, 8, 8, dtype=dtype),
+            rand(1, 1, 4, 8, 8, dtype=dtype), *aff, rand(c_out, c_in, 3, 3, 3, dtype=dtype),
+            rand(c_out, c_in, 1, 1, 1, dtype=dtype))
+
     k1, k6 = conv_of.conv3x3x3_of, conv_of.conv3x3x3_wgrad_of
+    k5, k2 = conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_combine
     bf, f32 = torch.bfloat16, torch.float32
     for fn, wrapper, c_in, c_out, dtype, launches, tc in (
         (conv, k1, 16, 16, bf, 1, 1), (conv, k1, 16, 16, f32, 1, 0), (conv, k1, 1, 16, bf, 1, 0),
         (conv, k1, 32, 64, bf, 1, 1), (conv, k1, 32, 64, f32, 2, 0),
         (wgrad, k6, 16, 16, bf, 1, 1), (wgrad, k6, 16, 16, f32, 1, 0), (wgrad, k6, 1, 16, bf, 1, 0),
         (wgrad, k6, 32, 64, bf, 1, 1), (wgrad, k6, 32, 64, f32, 2, 0),
+        (cat2, k5, 64, 32, bf, 1, 1), (cat2, k5, 64, 32, f32, 1, 0), (cat2, k5, 128, 64, bf, 2, 0),
+        (combine, k2, 32, 16, bf, 1, 1), (combine, k2, 64, 32, bf, 1, 1),
+        (combine, k2, 32, 16, f32, 1, 0),
     ):
         conv_of.reset_launches()
         fn(c_in, c_out, dtype)
@@ -377,3 +456,54 @@ def test_fused_forward_accumulating_exit(device):
     for (d, h, w), o in zip(starts, logits):
         want[:, d : d + 32, h : h + 32, w : w + 32] += o
     assert (acc - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("feature_size,wgrad_launches", [(8, 2), (24, 0)])
+def test_widths_without_kernels_serve_and_train_through_the_library(device, feature_size,
+                                                                    wgrad_launches):
+    """A small UNETR at a feature size the kernels lack: the Validator serves
+    it through the module forward (cuDNN), and in the training step only the
+    convs whose widths the kernels have take them, the others the library
+    conv; nothing raises. At feature size 8 those are decoder3's two convs
+    at 24^3 (32 -> 16 and 16 -> 16): K6 once each, K1 three times each
+    (forward, remat recompute, data gradient); at 24 none."""
+    from medseg_torch.engine.evaluate import Validator
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.engine.train import make_train_step
+    from medseg_torch.kernels import conv3d
+    from medseg_torch.models.unetr import UNETR, init_weights
+    from medseg_torch.ops.sliding_window import SlidingWindowSpec, sliding_window_inference
+
+    g = torch.Generator().manual_seed(feature_size)
+    kw = dict(in_channels=1, out_channels=3, img_size=(48, 48, 48), feature_size=feature_size,
+              hidden_size=24, mlp_dim=48, num_heads=4, num_layers=4, dtype=torch.bfloat16)
+    model = init_weights(UNETR(**kw), g).to(device).eval()
+    spec = SlidingWindowSpec(roi=(48, 48, 48), overlap=0.5, sw_batch=2, mode="gaussian")
+    volume = torch.randn((64, 56, 72, 1), generator=g).numpy()
+    conv_of.reset_launches()
+    validator = Validator(model, 3, "ct", spec, device=device)
+    assert not validator.use_fast_path
+    got = validator.infer_volume(volume)
+    with torch.no_grad():
+        want = sliding_window_inference(
+            volume, lambda w: model(w, return_encoder_features=False), 3, spec, device=device)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+    model = UNETR(**{**kw, "remat": True})
+    state = create_train_state(model, generator=g, learning_rate=1e-4, weight_decay=1e-5,
+                               device=device)
+    batch = {"image": torch.randn((2, 1, 48, 48, 48), generator=g).to(device),
+             "label": torch.randint(0, 3, (2, 48, 48, 48), generator=g,
+                                    dtype=torch.int32).to(device)}
+    route_min_hw = conv3d.OF_MIN_HW
+    conv3d.OF_MIN_HW = 16 * 16  # every conv at >= 16^2 asks the route
+    try:
+        state, loss = make_train_step(model, task="ct")(state, batch)
+    finally:
+        conv3d.OF_MIN_HW = route_min_hw
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss).all()
+    launched = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
+    assert launched == {"conv3x3x3_of": 3 * wgrad_launches, "conv3x3x3_of_cat2": 0,
+                        "conv3x3x3_of_combine": 0, "outhead_of": 0, "outhead_row_of": 0,
+                        "conv3x3x3_wgrad_of": wgrad_launches}, launched

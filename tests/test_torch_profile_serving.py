@@ -18,6 +18,14 @@ from medseg_torch.tools import profile_serving as ps
      "K2 conv3x3x3_of_combine"),
     ("void medseg::(anonymous namespace)::conv_tc_kernel<1, false, 16>"
      "(medseg::(anonymous namespace)::TcConvArgs)", "K1 conv3x3x3_of, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<0, true, 64>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K1 conv3x3x3_of, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<2, true, 32, 0>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K5 conv3x3x3_of_cat2, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<3, true, 16, 1>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K2 conv3x3x3_of_combine, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<(medseg::Mode)3, true, 32, 8>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K2 conv3x3x3_of_combine, tensor cores"),
     ("void medseg::(anonymous namespace)::wgrad_tc_kernel<32>"
      "(medseg::(anonymous namespace)::WgradTcArgs)", "K6 conv3x3x3_wgrad_of, tensor cores"),
     ("medseg::(anonymous namespace)::wgrad_tc_reduce_kernel(float const*, float*, int, int)",
