@@ -24,9 +24,11 @@ on failure:
    the BraTS window (128^3, four channels), with errors, CUDA-event times and
    the route each case took (K1 and K6: the tensor cores for bf16 with C_in
    a multiple of 16; K5 and K2: the tensor cores for bf16 with both halves
-   of their input a multiple of 16 wide; the CUDA cores otherwise);
+   of their input a multiple of 16 wide; the CUDA cores otherwise), K5 also
+   at feature size 32's (64+64)->64, every bf16 K5 case on the tensor cores;
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
-   one batch of four 96^3 windows;
+   one batch of four 96^3 windows, at feature size 16 (UNETR-B/16), then at
+   feature size 32 (K5 over (64+64)->64, on the tensor cores);
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
@@ -47,7 +49,8 @@ on failure:
    whose losses must be finite and fall and whose kernel launches are
    counted (K1 and K6 on the tensor cores);
 10. flat-kernel: K9 against its plain version at the flat route's shape
-    (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed;
+    (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed, with the
+    route each took (every bf16 case on the tensor cores, mode FLAT);
 11. pretrain: ranking pretraining of UNETR-B/16 (bf16, remat) through
     ``make_pretrain_step`` on two noise volumes x two overlapping 96^3
     crops: per stage (feat, then recon on the same state) the loss and
@@ -57,16 +60,17 @@ on failure:
     neither), then one warm and 5 timed steps (ms/step, peak memory);
 12. pretrain-flat: the recon step of a feature-size-32 UNETR with the flat
     per-conv route on: decoder3.conv1 through K9 (2 launches per step, its
-    forward and the remat recompute), loss and gradients against the fp32
-    twin, ms/step;
+    forward and the remat recompute, both on the tensor cores), loss and
+    gradients against the fp32 twin, ms/step;
 13. pretrain-cli: ``medseg_torch.cli.pretraining`` on four synthetic CT
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
     both stages' checkpoints and loss-vs-time artifacts, steps/s.
 
-The line before the last is the JSON kernel table (K1, K2, K5 and K6 with
-the launches of their tensor-core route beside all their launches, and the
-route their timed case took); the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+The line before the last is the JSON kernel table (K1, K2, K5, K6 and K9
+with the launches of their tensor-core route beside all their launches, the
+route their timed case took, and each kernel's fp32 case times beside the
+bf16 ones); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -101,19 +105,22 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
                      "dice_ce_sums 14 classes @4x96^3"),
     "dice_ce_bwd": ("medseg_torch/kernels/csrc/loss_of.cu", "medseg/kernels/loss_of.py:166",
                     "dice_ce_bwd 14 classes @4x96^3"),
-    "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_flat.cu", "medseg/kernels/conv3d.py:134",
+    "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_tc.cu", "medseg/kernels/conv3d.py:134",
                        "dec3.conv1 128->64 (feature size 32) @4x48^3"),
 }
-# K1, K2, K5 and K6 have a second route, on the CUDA cores (fp32, C_in of 1
-# or 4, K5 at C = 128); the timed bf16 case above takes the tensor cores.
-# "<name>[tc]" counts the launches that took the tensor-core route
+# K1, K2, K5, K6 and K9 have a second route, on the CUDA cores (fp32, C_in
+# of 1 or 4, K9 at C % 16 != 0); the timed bf16 case above takes the tensor
+# cores. "<name>[tc]" counts the launches that took the tensor-core route
 CUDA_CORE_SOURCES = {"conv3x3x3_of": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_of_cat2": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_of_combine": "medseg_torch/kernels/csrc/conv_of.cu",
-                     "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu"}
+                     "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu",
+                     "conv3x3x3_flat": "medseg_torch/kernels/csrc/conv_flat.cu"}
 K1_TC, K6_TC = "conv3x3x3_of[tc]", "conv3x3x3_wgrad_of[tc]"
-# K5 and K2 run only on the tensor cores on the serving paths (feature size 16)
+# K5 and K2 run only on the tensor cores on the serving paths (feature sizes
+# 16 and 32)
 TC_ONLY = ("conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+FS32 = 32  # the second feature size of the fused forward (K5 over (64+64) -> 64)
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
 # the training step, bf16 through the kernels vs the fp32 module without them
 # (same weights and batch): relative error of the loss and relative L2 of all
@@ -187,10 +194,10 @@ def all_launches() -> dict:
     K6 that took the tensor-core route."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
-    counts = {fn.__name__: fn.launches
-              for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
+    wrappers = {fn.__name__: fn for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
+    counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in CUDA_CORE_SOURCES:
-        counts[f"{name}[tc]"] = getattr(conv_of, name).tc_launches
+        counts[f"{name}[tc]"] = wrappers[name].tc_launches
     return counts
 
 
@@ -202,10 +209,13 @@ def reset_launches() -> None:
     conv_flat.reset_launches()
 
 
-def phase_kernels(device, card: str, table: dict, cases_fn, label: str) -> None:
+def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
+                  tc_required=()) -> None:
     """Every case of ``cases_fn`` in fp32 and bf16, kernel vs plain; fills
     each kernel's row of ``table`` (largest error; times and bound of its
-    timed bf16 case)."""
+    timed bf16 case, times of its fp32 case of the same name). The bf16
+    cases of the kernels named in ``tc_required`` must take the tensor
+    cores."""
     from medseg_torch.kernels import kernel_check
 
     failed = []
@@ -222,6 +232,10 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str) -> None:
                 entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms", "library_cl_ms")})
                 entry["timed_route"] = route
+            if dtype == torch.float32 and case.name == KERNELS[name][2]:
+                entry.update({f"fp32_{k}": r[k] for k in ("ms", "library_ms", "library_cl_ms")})
+            if dtype == torch.bfloat16 and name in tc_required and not tc:
+                failed.append((str(dtype), case.name, "not on the tensor cores"))
             lib = "" if r["library_ms"] is None else f" library {r['library_ms']:8.3f} ms"
             if r["library_cl_ms"] is not None:
                 lib += f" (channels_last {r['library_cl_ms']:.3f})"
@@ -272,6 +286,43 @@ def phase_forward(device, card: str):
     if not err <= FWD_REL_L2_BOUND:
         raise RuntimeError(f"fused forward rel L2 {err} above {FWD_REL_L2_BOUND}")
     return model, model_fp32
+
+
+def phase_forward32(device, card: str) -> dict:
+    """The fused forward of a feature-size-32 UNETR (ViT-B, 96^3 windows, 14
+    classes) on one batch of four windows against its fp32 module: its
+    dec3.conv1 is K5 over (64+64) -> 64, which must take the tensor cores."""
+    from medseg_torch.kernels import kernel_check
+    from medseg_torch.kernels.unetr_of import fast_apply_v3, fused_weights
+    from medseg_torch.models.unetr import UNETR, init_weights
+
+    g = torch.Generator().manual_seed(4)
+    model = UNETR(in_channels=1, out_channels=N_CLASSES, img_size=(CROP,) * 3,
+                  feature_size=FS32, dtype=torch.bfloat16)
+    model = init_weights(model, g).to(device).eval()
+    x = torch.randn((4, 1, CROP, CROP, CROP), generator=g).to(device)
+    weights = fused_weights(model)
+    model_fp32 = fp32_twin(model)
+    with torch.no_grad():
+        ref = model_fp32(x, return_encoder_features=False)
+    reset_launches()
+    got = fast_apply_v3(model, x, weights)[:, :N_CLASSES]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if not torch.isfinite(got).all():
+        raise RuntimeError("feature-32 fused forward: non-finite logits")
+    err = rel_l2(got, ref)
+    with torch.no_grad():
+        fused_ms = kernel_check.time_ms(lambda: fast_apply_v3(model, x, weights), reps=5)
+    log(f"[forward-32] UNETR-B (feature size {FS32}) 4x{CROP}^3: fused bf16 vs module fp32 rel "
+        f"L2 {err:.3e} (bound {FWD_REL_L2_BOUND}); fused {fused_ms:.2f} ms per batch of 4 "
+        f"[{card}]; launches {launches}")
+    if not err <= FWD_REL_L2_BOUND:
+        raise RuntimeError(f"feature-32 fused forward rel L2 {err} above {FWD_REL_L2_BOUND}")
+    require_tc_only(launches, "the feature-32 forward")
+    del model, model_fp32, ref
+    torch.cuda.empty_cache()
+    return launches
 
 
 def timed_volume(validator, volume) -> tuple[torch.Tensor, float, dict]:
@@ -716,9 +767,10 @@ def phase_pretrain_flat(device, card: str) -> dict:
         f"{ms:.2f} ms/step, peak {peak:.1f} GiB [{card}]; loss {loss:.6f}; launches {launches}")
     if not np.isfinite(loss):
         raise RuntimeError(f"pretrain flat: non-finite loss {loss}")
-    if launches["conv3x3x3_flat"] != FLAT_LAUNCHES_PER_STEP:
-        raise RuntimeError(f"pretrain flat: {launches['conv3x3x3_flat']} K9 launches in one recon "
-                           f"step, expected {FLAT_LAUNCHES_PER_STEP}")
+    k9 = (launches["conv3x3x3_flat"], launches["conv3x3x3_flat[tc]"])
+    if k9 != (FLAT_LAUNCHES_PER_STEP,) * 2:
+        raise RuntimeError(f"pretrain flat: (K9 launches, on the tensor cores) {k9} in one recon "
+                           f"step, expected {FLAT_LAUNCHES_PER_STEP} of each")
     require_launched(launches, RECON_KERNELS, "pretrain flat")
     del model, state, images
     torch.cuda.empty_cache()
@@ -793,10 +845,13 @@ def main() -> int:
     device, card = phase_device()
     phase_build(card)
     table: dict = {}
-    phase_kernels(device, card, table, kernel_check.kernel_cases, "kernel")
-    phase_kernels(device, card, table, kernel_check.brats_cases, "brats-kernel")
+    phase_kernels(device, card, table, kernel_check.kernel_cases, "kernel",
+                  tc_required=("conv3x3x3_of_cat2",))
+    phase_kernels(device, card, table, kernel_check.brats_cases, "brats-kernel",
+                  tc_required=("conv3x3x3_of_cat2",))
     model, model_fp32 = phase_forward(device, card)
-    paths = {"serving": phase_slice(model, model_fp32, device, card)}
+    paths = {"forward-32": phase_forward32(device, card)}
+    paths["serving"] = phase_slice(model, model_fp32, device, card)
     del model, model_fp32
     torch.cuda.empty_cache()
     paths["brats"] = phase_brats(device, card)
@@ -806,7 +861,8 @@ def main() -> int:
     phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
     paths["train"] = phase_train(device, card)
     torch.cuda.empty_cache()
-    phase_kernels(device, card, table, kernel_check.flat_cases, "flat-kernel")
+    phase_kernels(device, card, table, kernel_check.flat_cases, "flat-kernel",
+                  tc_required=("conv3x3x3_flat",))
     paths.update(phase_pretrain(device, card))
     paths["pretrain-flat"] = phase_pretrain_flat(device, card)
     paths["pretrain-cli"] = phase_pretrain_cli(device, card)
@@ -821,8 +877,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
+            "fp32_ms": row.get("fp32_ms"), "fp32_library_ms": row.get("fp32_library_ms"),
+            "fp32_library_channels_last_ms": row.get("fp32_library_cl_ms"),
         }
-        if name in CUDA_CORE_SOURCES:  # K1, K2, K5, K6: the launches of each of their routes
+        if name in CUDA_CORE_SOURCES:  # K1, K2, K5, K6, K9: the launches of each of their routes
             tc = f"{name}[tc]"
             kernel.update({
                 "cuda_core_source": CUDA_CORE_SOURCES[name], "timed_route": row["timed_route"],

@@ -40,9 +40,11 @@ _SIGNATURES = {
     "medseg_outhead_row": [_I] * 3 + [_P] * 10 + [_I] * 9 + [_P] * 4,
     # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
-    # device, mode, residual, c_out, x0, x1, x2, a0, b0, a1, b1, w_packed,
-    # wres_packed, out, s, ss, res, rs, rss, B, C, Cx, D, H, W, stream
-    "medseg_conv_tc": [_I] * 4 + [_P] * 15 + [_I] * 6 + [_P],
+    # device, mode, residual, c_out, staging, x0, x1, x2, a0, b0, a1, b1,
+    # w_packed, wres_packed, out, s, ss, res, rs, rss, B, C, Cx, D, H, W, stream
+    "medseg_conv_tc": [_I] * 5 + [_P] * 15 + [_I] * 6 + [_P],
+    # device, mode, residual, c_out, staging, C, Cx, plan (4 ints out)
+    "medseg_conv_tc_plan": [_I] * 7 + [_P],
     # device, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad_tc": [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P],
     # device, bf16, co_tile, x, w, out, B, C, C_out, D, H, W, stream
@@ -118,18 +120,23 @@ def library_path() -> Path:
     return target
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library, its entry points typed."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.medseg_error_string.argtypes = [ctypes.c_int]
+    handle.medseg_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(library_path()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.medseg_error_string.argtypes = [ctypes.c_int]
-        handle.medseg_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        _lib = load(library_path())
     return _lib
 
 

@@ -4,10 +4,20 @@
 ``conv3x3x3_flat(x, weight)``: a plain 3x3x3 stride-1 zero-padded conv of x
 (B, C, D, H, W) with weight (CO, C, 3, 3, 3), both in the compute dtype
 (fp32 or bf16), summed in fp32 and returned in fp32 (B, CO, D, H, W). No
-prologue, residual tap or statistics. The kernel (``csrc/conv_flat.cu``)
-takes C a multiple of 8 up to 128 and CO a multiple of 16 up to 128 in one
-launch (``has_kernel``); it raises on any other width. On a CPU tensor the
-wrapper runs the plain version; ``launches`` counts the kernel's launches.
+prologue, residual tap or statistics. Two routes, picked by shape and dtype
+alone:
+
+- the tensor cores (``csrc/conv_tc.cu`` mode FLAT, ``conv_of.tc_route(C,
+  CO, dtype, "flat")``): bf16 with C a multiple of 16 up to 128 and CO 16,
+  32 or 64, the input staged asynchronously (cp.async) where W is a
+  multiple of 8;
+- the CUDA cores (``csrc/conv_flat.cu``): every other width the kernel
+  takes, C a multiple of 8 up to 128 and CO a multiple of 16 up to 128, in
+  one launch (``has_kernel``), and fp32.
+
+It raises on any other width. On a CPU tensor the wrapper runs the plain
+version; ``launches`` counts the kernel's launches and ``tc_launches`` those
+that took the tensor cores.
 """
 
 from __future__ import annotations
@@ -48,9 +58,14 @@ def conv3x3x3_flat(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if not has_kernel(c, c_out):
         raise ValueError(f"C_out={c_out}: the flat conv kernel takes C_out a multiple of "
                          f"{CO_TILES[-1]} up to {MAX_C}")
-    tile = next(t for t in CO_TILES if c_out % t == 0)
     conv_of._check(x, "x", (bsz, c, d, h, w), dt, dev)
     conv_of._check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
+    if conv_of.tc_route(c, c_out, dt, "flat"):
+        out = conv_of.launch_flat_tc(x, weight)
+        conv3x3x3_flat.launches += 1
+        conv3x3x3_flat.tc_launches += 1
+        return out
+    tile = next(t for t in CO_TILES if c_out % t == 0)
     out = torch.empty((bsz, c_out, d, h, w), dtype=torch.float32, device=dev)
     err = _build.lib().medseg_conv_flat(
         dev.index, int(dt == torch.bfloat16), tile, x.data_ptr(), weight.data_ptr(), out.data_ptr(),
@@ -62,9 +77,9 @@ def conv3x3x3_flat(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 KERNELS = (conv3x3x3_flat,)
-conv3x3x3_flat.launches = 0
+conv3x3x3_flat.launches = conv3x3x3_flat.tc_launches = 0
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.tc_launches = 0

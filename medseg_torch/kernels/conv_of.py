@@ -25,14 +25,16 @@ K1, K2, K5 and K6 have two routes each, picked by shape and dtype alone:
   operands and the widths of ``tc_route`` / ``wgrad_tc_route``: K1 and K6
   with C_in a multiple of 16 up to 64 and C_out 16, 32 or 64 in one launch
   (K1 with or without the residual tap); K5 and K2 with both halves of
-  their input a multiple of 16 wide (C up to 64) at the output widths of
-  ``TC_MODE_C_OUT``. The wrapper packs the conv weights into the kernel's
-  layout (``pack_tc_weight``, ``pack_tc_wres``);
+  their input a multiple of 16 wide (K5: C up to 128; K2: up to 64) at the
+  output widths of ``TC_MODE_C_OUT``. The wrapper packs the conv weights
+  into the kernel's layout (``pack_tc_weight``, ``pack_tc_wres``). K5 (and
+  K9's tensor-core route, mode ``flat``, ``conv_flat``) stage their input
+  asynchronously (cp.async) where W is a multiple of 8 (``tc_staging``),
+  through registers otherwise;
 - the CUDA cores (``csrc/conv_of.cu``, ``csrc/wgrad_of.cu``): every other
-  call (fp32 operands, C_in of 1 or 4, K5 at C = 128). They are
-  instantiated for 16 and 32 output channels; a 64-wide conv runs as two
-  32-wide launches over the halves of its weight (K6: of its cotangent),
-  concatenated.
+  call (fp32 operands, C_in of 1 or 4). They are instantiated for 16 and 32
+  output channels; a 64-wide conv runs as two 32-wide launches over the
+  halves of its weight (K6: of its cotangent), concatenated.
 
 ``conv_has_kernel``, ``wgrad_has_kernel``, ``outhead_has_kernel`` and
 ``outhead_row_has_kernel`` are the width table of all of them: the wrappers
@@ -58,7 +60,7 @@ import torch.nn.functional as F
 from medseg_torch.kernels import _build
 from medseg_torch.models.blocks import NORM_EPS, leaky_relu
 
-_MODES = {"plain": 0, "affine_leaky": 1, "cat2": 2, "combine": 3}
+_MODES = {"plain": 0, "affine_leaky": 1, "cat2": 2, "combine": 3, "flat": 4}
 KERNEL_C_OUT = (16, 32)  # output widths the conv kernel is instantiated for
 SPLIT_C_OUT = 64  # run as two KERNEL_C_OUT[-1]-wide launches
 WGRAD_C_OUT = (16, 32)  # cotangent widths the wgrad kernel is instantiated for
@@ -70,24 +72,39 @@ OUTHEAD_ROW_MAX_C = 32  # largest MAXC of csrc/outhead_row_of.cu
 OUTHEAD_ROW_MAX_K = 32  # largest MAXK of csrc/outhead_row_of.cu
 OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu: windows per launch
 TC_SLICE = 16  # input channels per k-step of the tensor-core kernels
-TC_MAX_C = 64  # widest input the tensor-core kernels take (kernels.conv3d.MAX_C)
 TC_C_OUT = (16, 32, 64)  # output widths they are instantiated for, each one launch
-# per mode of csrc/conv_tc.cu: CAT2 and COMBINE only at the decoder's C_out =
-# C/2 that their routes send (K5 at feature size 16; K2 at 16 and 32)
-TC_MODE_C_OUT = {"plain": TC_C_OUT, "affine_leaky": TC_C_OUT, "cat2": (32,), "combine": (16, 32)}
+# per mode of csrc/conv_tc.cu (K9 is mode "flat"): the widest input, all
+# slices of it; CAT2 and FLAT reach 128 (feature size 32's dec3.conv1), the
+# modes whose kernels are not widened stay at 64 (kernels.conv3d.MAX_C)
+TC_MAX_C = {"plain": 64, "affine_leaky": 64, "cat2": 128, "combine": 64, "flat": 128}
+# the output widths: CAT2 and COMBINE only at the decoder's C_out = C/2 that
+# their routes send (K5 at feature sizes 16 and 32; K2 at 16 and 32)
+TC_MODE_C_OUT = {"plain": TC_C_OUT, "affine_leaky": TC_C_OUT, "cat2": (32, 64),
+                 "combine": (16, 32), "flat": TC_C_OUT}
 TC_TILE = (2, 8, 16)  # (z, y, x) voxel tile of a block of either
+# asynchronous (cp.async) staging of the no-prologue modes: W a multiple of 8
+# (aligned 16-byte pieces; csrc/conv_tc.cu ASYNC_W_ALIGN)
+TC_ASYNC_MODES = ("cat2", "flat")
+TC_ASYNC_W_ALIGN = 8
 WGRAD_TC_BLOCKS_PER_SM = 2  # K6 tile groups per SM (two blocks fit at C_out = 16)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def tc_route(c_in: int, c_out: int, dtype: torch.dtype, mode: str = "plain") -> bool:
     """Whether a conv call of ``c_in`` -> ``c_out`` channels in ``dtype``
-    runs on the tensor cores: K1 (modes plain and affine_leaky), K5 (cat2)
-    or K2 (combine; ``c_in`` counts both halves of the input, whose boundary
-    must fall on a 16-channel slice)."""
+    runs on the tensor cores: K1 (modes plain and affine_leaky), K5 (cat2),
+    K2 (combine; ``c_in`` counts both halves of the input, whose boundary
+    must fall on a 16-channel slice) or K9 (flat)."""
     slice_c = c_in // 2 if mode in ("cat2", "combine") else c_in
     return (dtype == torch.bfloat16 and c_in % 2 == 0 and slice_c % TC_SLICE == 0
-            and 0 < c_in <= TC_MAX_C and c_out in TC_MODE_C_OUT[mode])
+            and 0 < c_in <= TC_MAX_C[mode] and c_out in TC_MODE_C_OUT[mode])
+
+
+def tc_staging(mode: str, w: int) -> int:
+    """How a tensor-core call of ``mode`` on volumes of width ``w`` stages
+    its input: 1, asynchronously by cp.async (the no-prologue modes, W a
+    multiple of 8); 0, through registers."""
+    return int(mode in TC_ASYNC_MODES and w % TC_ASYNC_W_ALIGN == 0)
 
 
 def wgrad_tc_route(c: int, c_out: int, dtype: torch.dtype) -> bool:
@@ -376,15 +393,47 @@ def _launch_conv_tc(mode, streams, weight, wres, affines, x_channels):
     out, s, ss, res, rs, rss = outs
     w_packed = pack_tc_weight(weight)
     wres_packed = None if wres is None else pack_tc_wres(wres)
+    staging = tc_staging(mode, w)
+    if staging:
+        _check_async_aligned(streams)
     err = _build.lib().medseg_conv_tc(
-        dev.index, _MODES[mode], int(wres is not None), c_out, *map(_ptr, xs), *map(_ptr, aff),
-        _ptr(w_packed), _ptr(wres_packed), _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs),
-        _ptr(rss), bsz, c, x_channels, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
+        dev.index, _MODES[mode], int(wres is not None), c_out, staging, *map(_ptr, xs),
+        *map(_ptr, aff), _ptr(w_packed), _ptr(wres_packed), _ptr(out), _ptr(s), _ptr(ss),
+        _ptr(res), _ptr(rs), _ptr(rss), bsz, c, x_channels, d, h, w,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"conv3x3x3 tensor-core kernel ({mode})")
     _MODE_WRAPPER[mode].launches += 1
     _MODE_WRAPPER[mode].tc_launches += 1
     return outs if wres is not None else outs[:3]
+
+
+def _check_async_aligned(streams) -> None:
+    for i, t in enumerate(streams):
+        if t.data_ptr() % 16:  # the staging copies aligned 16-byte pieces
+            raise ValueError(f"input stream {i} must start at a 16-byte boundary "
+                             "(asynchronous staging)")
+
+
+def launch_flat_tc(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K9 on the tensor cores (``tc_route(C, C_out, dtype, "flat")``): the
+    plain 3x3x3 conv of x (B, C, D, H, W) bf16 in fp32 (B, CO, D, H, W), one
+    launch of ``csrc/conv_tc.cu`` mode FLAT (no residual tap, no
+    statistics). Shapes are checked by the caller (``conv_flat``)."""
+    dev = x.device
+    bsz, c, d, h, w = x.shape
+    c_out = weight.shape[0]
+    out = torch.empty((bsz, c_out, d, h, w), dtype=torch.float32, device=dev)
+    staging = tc_staging("flat", w)
+    if staging:
+        _check_async_aligned((x,))
+    err = _build.lib().medseg_conv_tc(
+        dev.index, _MODES["flat"], 0, c_out, staging, _ptr(x), None, None, None, None, None, None,
+        _ptr(pack_tc_weight(weight)), None, _ptr(out), None, None, None, None, None, bsz, c, 0, d,
+        h, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "conv3x3x3 tensor-core kernel (flat)")
+    return out
 
 
 def conv3x3x3_of(x, weight, a=None, b=None, wres=None):

@@ -1,7 +1,8 @@
 // Building blocks of the tensor-core conv kernels (conv_tc.cu, wgrad_tc.cu):
-// channels-last bf16 staging of an NCDHW box in shared memory (with the
-// AFFINE and COMBINE prologues), its swizzle, and the PTX of ldmatrix,
-// mma.sync m16n8k16 (bf16 in, fp32 sums) and cp.async.
+// channels-last bf16 staging of an NCDHW box in shared memory (through
+// registers, with the AFFINE and COMBINE prologues, or from a box that
+// cp.async landed channel-major), its swizzle, and the PTX of ldmatrix,
+// mma.sync m16n8k16 (bf16 in, fp32 sums) and cp.async (with zero fill).
 //
 // Staging. A box of voxels is held in shared memory as rows of CH bf16
 // channels (CH * 2 bytes, a multiple of 32), one row per voxel, voxels in
@@ -66,6 +67,25 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// cp.async of ``bytes`` (16; 4 for the .ca form) with zero fill: the
+// remaining bytes of the destination are written 0 (src_bytes 0: all of them,
+// ``src`` not read).
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// Waits until at most N of this thread's committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // leaky(a * v + b) of both bf16 halves of w, rounded back to bf16 (the
@@ -248,6 +268,45 @@ struct BoxStage {
     }
   }
 };
+
+// The channels-last rows of a box staged channel-major by cp.async
+// (conv_tc.cu's asynchronous staging): ``box`` holds, per channel c of 16
+// and z-y row zy of BZ x BY, a row of PITCH bf16 in which voxel vx of the
+// BX staged (x = the box's x origin + vx) sits at element OFF + vx (OFF odd;
+// the row may spill into the next one's first elements). ``dst`` gets BZ *
+// BY * BX swizzled rows of 16 channels, as BoxStage lays them out. Item p of
+// (8-channel chunk, zy) reads the 32-bit word of each of its 8 channels that
+// holds voxels 2p - 1 (low half) and 2p (high half): 8 loads, two 16-byte
+// stores (one at the ends). Nothing stays in registers past the item.
+template <int BZ, int BY, int BX, int PITCH, int OFF, int NT>
+__device__ __forceinline__ void box_to_rows(const unsigned char* box, unsigned char* dst, int tid) {
+  static_assert(BX % 2 == 0 && PITCH % 2 == 0 && OFF % 2 == 1, "voxel pairs across words");
+  constexpr int WORDS = BX / 2 + 1, ROWS = BZ * BY;
+  constexpr int ITEMS = 2 * ROWS * WORDS;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(box);
+#pragma unroll
+  for (int k = 0; k < (ITEMS + NT - 1) / NT; ++k) {
+    const int i = tid + k * NT;
+    if (i < ITEMS) {
+      const int c = i / (ROWS * WORDS), r = i - c * (ROWS * WORDS);
+      const int zy = r / WORDS, p = r - zy * WORDS;
+      uint32_t w[8];  // channel 8c + j at voxels 2p - 1 (low half) and 2p (high half)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = src[((8 * c + j) * ROWS + zy) * (PITCH / 2) + OFF / 2 + p];
+      const int v = zy * BX + 2 * p;
+      if (p > 0) {
+        const uint4 lo = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                                    __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
+        *reinterpret_cast<uint4*>(dst + swz<32>(v - 1, c)) = lo;
+      }
+      if (p < BX / 2) {
+        const uint4 hi = make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
+                                    __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
+        *reinterpret_cast<uint4*>(dst + swz<32>(v, c)) = hi;
+      }
+    }
+  }
+}
 
 }  // namespace tc
 }  // namespace medseg

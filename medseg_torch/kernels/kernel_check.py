@@ -2,8 +2,9 @@
 
 ``kernel_cases`` builds seeded inputs for every kernel of the serving path
 at the shapes the fused forward gives it (``full``^3 and ``full/2``^3
-volumes, ``fs`` = feature_size; K4 on one z-row batch of six windows, fp32
-and bf16 accumulators); ``brats_cases`` does the same at the BraTS window
+volumes, ``fs`` = feature_size 16, and K5 also at feature size 32's
+(64+64)->64; K4 on one z-row batch of six windows, fp32 and bf16
+accumulators); ``brats_cases`` does the same at the BraTS window
 (128^3, four input channels, 8 padded classes); ``training_cases`` for the
 kernels the training step adds (K6, K1's data gradient, K7 and K8);
 ``flat_cases`` for K9, the flat per-conv route of the pretraining path
@@ -118,6 +119,17 @@ def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) 
         c.conv3x3x3_of_cat2_plain, (xa, xb, w_cat, weight(2 * fs, 4 * fs, 1)),
         flops=_conv_flops(x_cat, 2 * fs, 28), library=lib, library_cl=lib_cl,
     ))
+    # feature size 32's dec3.conv1: (64+64) -> 64, on the tensor cores since
+    # the width table reached C = 128 for K5
+    xa, xb = vol(4 * fs, half), vol(4 * fs, half)
+    w_cat, x_cat = weight(4 * fs, 8 * fs), torch.cat([xa, xb], dim=1)
+    lib, lib_cl = _conv_library(x_cat, w_cat)
+    cases.append(Case(
+        f"dec3.conv1 ({4 * fs}+{4 * fs})->{4 * fs} (feature size 32) @{batch}x{half}^3",
+        c.conv3x3x3_of_cat2, c.conv3x3x3_of_cat2_plain, (xa, xb, w_cat, weight(4 * fs, 8 * fs, 1)),
+        flops=_conv_flops(x_cat, 4 * fs, 28), library=lib, library_cl=lib_cl,
+    ))
+    del x_cat
     for xc in (1, fs):
         cases.append(combine_case(f"dec2.conv1 ({fs}+{fs})->{fs} x{xc}ch @{batch}x{full}^3",
                                   vol(fs, full), vol(fs, full), vol(xc, full), *affine(fs),

@@ -39,11 +39,12 @@ TOP_NAMES = 4  # kernel names kept per class, by device time
 OUT_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
 
 _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3_of_cat2",
-              "3": "K2 conv3x3x3_of_combine"}
+              "3": "K2 conv3x3x3_of_combine", "4": "K9 conv3x3x3_flat"}
 # the conv's template arguments begin with its input mode (conv_of.cu: after
 # the dtype); conv_tc.cu's kernels are the same modes on the tensor cores
+# (and mode 4, K9), ``conv_tc_async_kernel`` those with the asynchronous staging
 _CONV_KERNEL = re.compile(r"conv3_kernel<[^,]+,\s*(?:\([^)]*\))?(\d)")
-_CONV_TC_KERNEL = re.compile(r"conv_tc_kernel<\s*(?:\([^)]*\))?(\d)")
+_CONV_TC_KERNEL = re.compile(r"conv_tc_(async_)?kernel<\s*(?:\((?:[^()]|\([^()]*\))*\))?(\d)")
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     # K6 on the tensor cores; its CUDA-core route keeps the plain names
     ("K6 conv3x3x3_wgrad_of, tensor cores", re.compile(r"wgrad_tc_(reduce_)?kernel")),
@@ -68,7 +69,7 @@ def kernel_class(name: str) -> str:
         return _CONV_MODE[m.group(1)]
     m = _CONV_TC_KERNEL.search(name)
     if m:
-        return f"{_CONV_MODE[m.group(1)]}, tensor cores"
+        return f"{_CONV_MODE[m.group(2)]}, tensor cores{', async' if m.group(1) else ''}"
     for cls, pattern in _CLASSES:
         if pattern.search(name):
             return cls

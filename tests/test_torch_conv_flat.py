@@ -6,6 +6,12 @@
   shapes, 1e-5 (fp32 both sides, sums in another order);
 - ``FlatConvFn``'s gradients against ``jax.grad`` of ``_xla_conv`` (the fp32
   conv whose VJP the JAX route's backward is), 1e-5;
+- K9's two routes on the card, by shape and dtype (``conv_of.tc_route``,
+  mode flat, and ``conv_of.tc_staging``): the flat route's shapes in bf16
+  on the tensor cores with the asynchronous staging, fp32 on the CUDA cores;
+  the
+  tensor-core route's GEMM order is held to the Pallas kernel in
+  ``tests/test_torch_conv_tc.py``;
 - the routing predicates against the JAX ones on a table of shapes: the
   port's ``flat_route`` against JAX's ``flat_supported and not _of_ok`` on
   shapes where the two packages' K1 predicates agree (the port's K1 also
@@ -27,7 +33,7 @@ import torch
 from medseg.kernels import conv3d as jconv
 from medseg.models.unetr import UNETR as JUNETR
 from medseg_torch.engine.checkpoint import state_dict_from_flax
-from medseg_torch.kernels import conv3d, conv_flat
+from medseg_torch.kernels import conv3d, conv_flat, conv_of
 from medseg_torch.models.unetr import UNETR
 from test_torch_train import NORM_CANCELLED
 
@@ -42,7 +48,8 @@ def _torch_weight(k):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (4, 3, 0, 1, 2))))
 
 
-@pytest.mark.parametrize("shape,co", [((1, 6, 8, 8, 16), 16), ((2, 4, 8, 16, 8), 16)])
+@pytest.mark.parametrize("shape,co", [((1, 6, 8, 8, 16), 16), ((2, 4, 8, 16, 8), 16),
+                                      ((2, 5, 9, 24, 128), 64), ((1, 5, 9, 12, 32), 16)])
 def test_plain_matches_pallas_interpret(shape, co):
     rng = np.random.default_rng(0)
     x = rng.normal(size=shape).astype(np.float32)
@@ -110,6 +117,25 @@ def test_routing_predicates_match_jax(monkeypatch, shape, co):
                                             and not jconv._of_ok(shape, co))
     monkeypatch.setattr(conv3d, "PALLAS_PER_CONV", False)
     assert not conv3d.flat_route(ncdhw, co)
+
+
+@pytest.mark.parametrize("shape,co,tc,staged", [
+    ((4, 128, 48, 48, 48), 64, True, True),  # decoder3.conv1 at feature size 32
+    ((4, 32, 96, 96, 96), 16, True, True), ((4, 64, 48, 48, 48), 32, True, True),
+    ((2, 128, 24, 24, 20), 64, True, False),  # W % 8 != 0: the register staging
+    ((2, 120, 48, 48, 48), 64, False, False), ((2, 128, 48, 48, 48), 128, False, False),
+    ((2, 24, 48, 48, 48), 16, False, False),  # C % 16 != 0: the CUDA cores
+])
+def test_k9_routes_by_shape_and_dtype(shape, co, tc, staged):
+    """bf16 K9 calls with C % 16 == 0 (C <= 128) and C_out 16, 32 or 64 take
+    the tensor cores, with the asynchronous (cp.async) staging where W % 8
+    == 0; every other
+    width K9 has, and fp32, the CUDA-core kernel."""
+    c, w = shape[1], shape[4]
+    assert conv_flat.has_kernel(c, co)
+    assert conv_of.tc_route(c, co, torch.bfloat16, "flat") is tc
+    assert not conv_of.tc_route(c, co, torch.float32, "flat")
+    assert bool(tc and conv_of.tc_staging("flat", w)) is staged
 
 
 def test_the_pretraining_conv_takes_the_flat_route(monkeypatch):

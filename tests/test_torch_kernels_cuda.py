@@ -8,7 +8,8 @@ there with:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
 Small shapes (2 x 16^3 and 8^3 volumes; the tensor-core routes of K1, K2,
-K5 and K6 at a 9x17x18 volume, ragged against their 2x8x16 tile);
+K5, K6 and K9 at a 9x17x18 volume, ragged against their 2x8x16 tile, and K5
+and K9 also at 9x17x24, where W % 8 == 0 takes the asynchronous staging);
 ``chip_smoke.py``
 repeats the comparisons at the serving path's, the training step's and the
 pretraining path's full shapes. Tolerances are those of
@@ -251,6 +252,87 @@ def test_tc_two_stream_modes_match_plain(device, mode, c, c_out, x_channels):
     assert case.kernel.launches == case.kernel.tc_launches == 1
 
 
+ASYNC_VOLUME = (9, 17, 24)  # ragged against the tile, W % 8 == 0: the cp.async staging
+
+
+@pytest.mark.parametrize("vol", [ASYNC_VOLUME, TC_VOLUME], ids=["async", "registers"])
+@pytest.mark.parametrize("c,c_out", [(64, 32), (128, 64), (64, 64), (128, 32)])
+def test_tc_cat2_stagings_match_plain(device, c, c_out, vol):
+    """K5 on the tensor cores up to C = 128 at both stagings (cp.async where W
+    % 8 == 0, registers otherwise), two batch elements, against its plain
+    version; one tensor-core launch each."""
+    g = torch.Generator().manual_seed(c * 10 + c_out + vol[2])
+    bf = torch.bfloat16
+    xa, xb = (_randn(g, 2, c // 2, *vol).to(device, bf) for _ in range(2))
+    w = _randn(g, c_out, c, 3, 3, 3, scale=(27 * c) ** -0.5).to(device, bf)
+    wres = _randn(g, c_out, c, 1, 1, 1, scale=c ** -0.5).to(device, bf)
+    assert conv_of.tc_staging("cat2", vol[2]) == (vol == ASYNC_VOLUME)
+    case = kernel_check.Case("tc cat2", conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_cat2_plain,
+                             (xa, xb, w, wres))
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert case.kernel.launches == case.kernel.tc_launches == 1
+
+
+@pytest.mark.parametrize("vol", [ASYNC_VOLUME, TC_VOLUME, (5, 12, 20)],
+                         ids=["async", "registers", "registers-w20"])
+@pytest.mark.parametrize("c,c_out", [(128, 64), (32, 16), (64, 32), (16, 64)])
+def test_tc_flat_matches_plain(device, c, c_out, vol):
+    """K9 on the tensor cores (mode FLAT: fp32 out, no statistics) at both
+    stagings against its plain version; one tensor-core launch each."""
+    g = torch.Generator().manual_seed(c + c_out + vol[2])
+    bf = torch.bfloat16
+    x = _randn(g, 2, c, *vol).to(device, bf)
+    w = _randn(g, c_out, c, 3, 3, 3, scale=(27 * c) ** -0.5).to(device, bf)
+    case = kernel_check.Case("tc flat", conv_flat.conv3x3x3_flat, conv_flat.conv3x3x3_flat_plain,
+                             (x, w))
+    conv_flat.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    assert conv_flat.conv3x3x3_flat.launches == conv_flat.conv3x3x3_flat.tc_launches == 1
+
+
+def test_async_routes_walk_many_tiles(device):
+    """K5 (32+32)->32 (two groups per block, resident weights) and K9
+    128->64 (one group, weights streamed over 8 slices) over 675 tiles of
+    three batch elements with the cp.async staging: the groups cross batch
+    elements (K5's statistics leave per element)."""
+    g = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    vol = (30, 40, 40)
+    assert conv_of.tc_tiles((3, 1, *vol)) == 3 * 15 * 5 * 3
+    xa, xb = (_randn(g, 3, 32, *vol).to(device, bf) for _ in range(2))
+    w5 = _randn(g, 32, 64, 3, 3, 3, scale=(27 * 64) ** -0.5).to(device, bf)
+    wres = _randn(g, 32, 64, 1, 1, 1, scale=64 ** -0.5).to(device, bf)
+    x = _randn(g, 3, 128, *vol).to(device, bf)
+    w9 = _randn(g, 64, 128, 3, 3, 3, scale=(27 * 128) ** -0.5).to(device, bf)
+    conv_of.reset_launches()
+    conv_flat.reset_launches()
+    for case in (
+        kernel_check.Case("tc cat2", conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_cat2_plain,
+                          (xa, xb, w5, wres)),
+        kernel_check.Case("tc flat", conv_flat.conv3x3x3_flat, conv_flat.conv3x3x3_flat_plain,
+                          (x, w9)),
+    ):
+        r = kernel_check.run_case(case, bf)
+        assert r["ok"], r
+    assert conv_of.conv3x3x3_of_cat2.tc_launches == conv_flat.conv3x3x3_flat.tc_launches == 1
+
+
+def test_async_staging_raises_on_a_misaligned_input(device):
+    """The cp.async staging needs each stream to start at a 16-byte boundary: a
+    view two bytes in raises, it does not take the other route."""
+    bf = torch.bfloat16
+    n = 2 * 32 * 8 * 8 * 16
+    x = torch.randn(n + 1, device=device).to(bf)[1:].view(2, 32, 8, 8, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.randn(16, 32, 3, 3, 3, device=device).to(bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv_flat.conv3x3x3_flat(x, w)
+    conv_flat.conv3x3x3_flat(x.clone(), w)  # the aligned copy launches
+
+
 def test_tc_two_stream_modes_walk_many_tiles(device):
     """K2 with a 1-channel x over 675 tiles of three batch elements: the
     persistent blocks cross batch elements and both streams."""
@@ -275,7 +357,9 @@ def test_routes_count_tc_launches(device):
     """bf16 with C_in % 16 == 0 takes the tensor cores, one launch even at
     64 output channels; fp32 and C_in = 1 take the CUDA cores (64 wide: two
     launches). K5 and K2 take the tensor cores in bf16 at the decoder's
-    widths, the CUDA cores in fp32 and at C = 128 (K5 at feature size 32)."""
+    widths (K5 up to C = 128, feature size 32), the CUDA cores in fp32; K9
+    takes them in bf16 at C % 16 == 0, the CUDA cores in fp32 and at C =
+    24."""
     def conv(c_in, c_out, dtype):
         x = torch.randn(1, c_in, 4, 8, 8, device=device, dtype=dtype)
         conv_of.conv3x3x3_of(x, torch.randn(c_out, c_in, 3, 3, 3, device=device, dtype=dtype))
@@ -301,7 +385,12 @@ def test_routes_count_tc_launches(device):
             rand(1, 1, 4, 8, 8, dtype=dtype), *aff, rand(c_out, c_in, 3, 3, 3, dtype=dtype),
             rand(c_out, c_in, 1, 1, 1, dtype=dtype))
 
+    def flat(c_in, c_out, dtype):
+        conv_flat.conv3x3x3_flat(rand(1, c_in, 4, 8, 8, dtype=dtype),
+                                 rand(c_out, c_in, 3, 3, 3, dtype=dtype))
+
     k1, k6 = conv_of.conv3x3x3_of, conv_of.conv3x3x3_wgrad_of
+    k9 = conv_flat.conv3x3x3_flat
     k5, k2 = conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_combine
     bf, f32 = torch.bfloat16, torch.float32
     for fn, wrapper, c_in, c_out, dtype, launches, tc in (
@@ -309,11 +398,15 @@ def test_routes_count_tc_launches(device):
         (conv, k1, 32, 64, bf, 1, 1), (conv, k1, 32, 64, f32, 2, 0),
         (wgrad, k6, 16, 16, bf, 1, 1), (wgrad, k6, 16, 16, f32, 1, 0), (wgrad, k6, 1, 16, bf, 1, 0),
         (wgrad, k6, 32, 64, bf, 1, 1), (wgrad, k6, 32, 64, f32, 2, 0),
-        (cat2, k5, 64, 32, bf, 1, 1), (cat2, k5, 64, 32, f32, 1, 0), (cat2, k5, 128, 64, bf, 2, 0),
+        (cat2, k5, 64, 32, bf, 1, 1), (cat2, k5, 64, 32, f32, 1, 0), (cat2, k5, 128, 64, bf, 1, 1),
+        (cat2, k5, 128, 64, f32, 2, 0), (cat2, k5, 128, 32, bf, 1, 1),
+        (flat, k9, 128, 64, bf, 1, 1), (flat, k9, 32, 16, bf, 1, 1), (flat, k9, 128, 64, f32, 1, 0),
+        (flat, k9, 24, 16, bf, 1, 0),
         (combine, k2, 32, 16, bf, 1, 1), (combine, k2, 64, 32, bf, 1, 1),
         (combine, k2, 32, 16, f32, 1, 0),
     ):
         conv_of.reset_launches()
+        conv_flat.reset_launches()
         fn(c_in, c_out, dtype)
         assert (wrapper.launches, wrapper.tc_launches) == (launches, tc), (c_in, c_out, dtype)
     torch.cuda.synchronize()
@@ -370,9 +463,10 @@ def test_each_wrapper_counts_its_launches(device):
         case.kernel(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
-    # K4: one launch per case (six windows each, fp32 and bf16 accumulators)
+    # K4: one launch per case (six windows each, fp32 and bf16 accumulators);
+    # K5: (32+32)->32 once, (64+64)->64 as two 32-wide launches in fp32
     assert counts == {
-        "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 1, "conv3x3x3_of_combine": 2, "outhead_of": 1,
+        "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 3, "conv3x3x3_of_combine": 2, "outhead_of": 1,
         "outhead_row_of": 2, "conv3x3x3_wgrad_of": 0,
     }
 

@@ -1,5 +1,6 @@
 """The profilers' bookkeeping (``profile_serving``, shared by
-``profile_train``): kernel classes by name and busy time
+``profile_train`` and ``profile_pretrain``): kernel classes by name (both
+stagings of the tensor-core conv among them) and busy time
 as the union of kernel intervals (the profiling itself needs the card)."""
 
 import pytest
@@ -26,6 +27,13 @@ from medseg_torch.tools import profile_serving as ps
      "(medseg::(anonymous namespace)::TcConvArgs)", "K2 conv3x3x3_of_combine, tensor cores"),
     ("void medseg::(anonymous namespace)::conv_tc_kernel<(medseg::Mode)3, true, 32, 8>"
      "(medseg::(anonymous namespace)::TcConvArgs)", "K2 conv3x3x3_of_combine, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_kernel<4, false, 64, 0>"
+     "(medseg::(anonymous namespace)::TcConvArgs)", "K9 conv3x3x3_flat, tensor cores"),
+    ("void medseg::(anonymous namespace)::conv_tc_async_kernel<2, 32>(CUtensorMap, CUtensorMap, "
+     "medseg::(anonymous namespace)::TcConvArgs)", "K5 conv3x3x3_of_cat2, tensor cores, async"),
+    ("void medseg::(anonymous namespace)::conv_tc_async_kernel<(medseg::(anonymous namespace)::"
+     "Mode)4, 64>(CUtensorMap, CUtensorMap, medseg::(anonymous namespace)::TcConvArgs)",
+     "K9 conv3x3x3_flat, tensor cores, async"),
     ("void medseg::(anonymous namespace)::wgrad_tc_kernel<32>"
      "(medseg::(anonymous namespace)::WgradTcArgs)", "K6 conv3x3x3_wgrad_of, tensor cores"),
     ("medseg::(anonymous namespace)::wgrad_tc_reduce_kernel(float const*, float*, int, int)",

@@ -18,13 +18,17 @@ JAX package routes such widths to XLA or flax.
   sizes 8, 24, 48 and 64, the fused forward at 16 and 32; one volume served
   at feature size 8 takes the module forward and matches the plain walk.
 - ``flat_route`` selects the convs it selected before this table existed.
+- The tensor-core table widened for K5 and K9 (CAT2 and FLAT up to C = 128):
+  feature size 32's dec3.conv1 takes the tensor cores in bf16 on both
+  routes, fp32 stays on the CUDA cores, K1, K2 and K6 still stop at 64, and
+  every width that had a kernel before the widening still has one.
 """
 
 import pytest
 import torch
 
 from medseg_torch.engine import evaluate as tevaluate
-from medseg_torch.kernels import conv3d, conv_flat
+from medseg_torch.kernels import conv3d, conv_flat, conv_of
 from medseg_torch.kernels import unetr_of as tuo
 from medseg_torch.models.unetr import UNETR
 from medseg_torch.ops.sliding_window import SlidingWindowSpec, sliding_window_inference
@@ -157,3 +161,53 @@ def test_flat_route_selects_what_it_selected(monkeypatch, c, c_out, hw):
     assert conv3d.flat_route(shape, c_out) == before
     assert conv3d.flat_route(shape, c_out, device="cuda") == (
         before and conv_flat.has_kernel(c, c_out))
+
+
+def test_feature_size_32_dec3_takes_the_tensor_cores():
+    """dec3.conv1 at feature size 32: serving's K5 over (64+64) -> 64 and
+    the flat route's K9 128 -> 64 on the tensor cores in bf16, on the CUDA
+    cores in fp32."""
+    assert conv_of.tc_route(128, 64, BF, "cat2")
+    assert conv_of.tc_route(128, 64, BF, "flat")
+    assert not conv_of.tc_route(128, 64, torch.float32, "cat2")
+    assert not conv_of.tc_route(128, 64, torch.float32, "flat")
+    model = _model(32)
+    assert tuo.chain_has_kernels(model, 1)
+    # the serving chain's widths at feature size 32, all on the tensor cores but enc1.conv1
+    fs = 32
+    for mode, c, c_out in (("affine_leaky", fs, fs), ("cat2", 4 * fs, 2 * fs),
+                           ("affine_leaky", 2 * fs, 2 * fs), ("combine", 2 * fs, fs)):
+        assert conv_of.tc_route(c, c_out, BF, mode), (mode, c, c_out)
+
+
+@pytest.mark.parametrize("mode", ["plain", "affine_leaky", "combine"])
+def test_unwidened_modes_stop_at_64(mode):
+    c_out = 32 if mode == "combine" else 64
+    assert conv_of.tc_route(64, c_out, BF, mode)
+    assert not conv_of.tc_route(128, c_out, BF, mode)
+    assert not conv_of.tc_route(96, c_out, BF, mode)
+    assert conv_of.wgrad_tc_route(64, 64, BF) and not conv_of.wgrad_tc_route(128, 64, BF)
+
+
+def _had_kernel(mode, c_in, c_out, dtype):
+    """``conv_of.conv_has_kernel`` before the widening: the tensor cores up to
+    C = 64 (CAT2 at C_out 32 only), the CUDA cores at C_out 16, 32, 64."""
+    if dtype not in (torch.float32, BF) or (mode in ("cat2", "combine") and c_in % 2):
+        return False
+    slice_c = c_in // 2 if mode in ("cat2", "combine") else c_in
+    mode_c_out = {"plain": (16, 32, 64), "affine_leaky": (16, 32, 64), "cat2": (32,),
+                  "combine": (16, 32)}[mode]
+    tc = dtype == BF and slice_c % 16 == 0 and 0 < c_in <= 64 and c_out in mode_c_out
+    return tc or c_out in (16, 32, 64)
+
+
+@pytest.mark.parametrize("mode", ["plain", "affine_leaky", "cat2", "combine"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_no_width_lost_its_kernel(mode, dtype):
+    for c_in in (1, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256):
+        for c_out in (8, 16, 24, 32, 48, 64, 128):
+            if _had_kernel(mode, c_in, c_out, dtype):
+                assert conv_of.conv_has_kernel(mode, c_in, c_out, dtype), (c_in, c_out)
+    for c in (8, 16, 32, 64, 128, 136):
+        for c_out in (16, 32, 48, 64, 128):  # K9's CUDA-core widths stay the table
+            assert conv_flat.has_kernel(c, c_out) == (c % 8 == 0 and c <= 128 and c_out % 16 == 0)
