@@ -20,27 +20,31 @@ on failure:
    for every fp32 reference;
 2. build: the kernel library, timed;
 3. every serving kernel against its plain PyTorch version at the path's
-   shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators), then at
-   the BraTS window (128^3, four channels), with errors, CUDA-event times and
-   the route each case took (K1 and K6: the tensor cores for bf16 with C_in
-   a multiple of 16; K5 and K2: the tensor cores for bf16 with both halves
-   of their input a multiple of 16 wide; the CUDA cores otherwise), K5 also
-   at feature size 32's (64+64)->64, every bf16 K5 case on the tensor cores;
+   shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators, and on a
+   row whose last window starts off 8 voxels), then at the BraTS window
+   (128^3, four channels), with errors, CUDA-event times and the route each
+   case took (K1 and K6: the tensor cores for bf16 with C_in a multiple of
+   16; K5 and K2: the tensor cores for bf16 with both halves of their input
+   a multiple of 16 wide; K3 and K4: the tensor cores for bf16 with C a
+   multiple of 16 and K_pad 8, 16 or 32; the CUDA cores otherwise), K5 also
+   at feature size 32's (64+64)->64, every bf16 K3, K4 and K5 case on the
+   tensor cores;
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
    one batch of four 96^3 windows, at feature size 16 (UNETR-B/16), then at
-   feature size 32 (K5 over (64+64)->64, on the tensor cores);
+   feature size 32 (K5 over (64+64)->64), K2, K3 and K5 only on the tensor
+   cores;
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
-   timed run each, whose kernel launches are counted: 50 K4 launches, 50
-   K2 and 50 K5 launches, all of these two on the tensor cores, and K1 on
-   the tensor cores);
+   timed run each, whose kernel launches are counted: 50 K4, 50 K2 and 50
+   K5 launches, all on the tensor cores, and K1 on the tensor cores);
 6. config 8: a small four-channel volume against the plain fp32 forward,
    then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched;
-   K2 and K5 only on the tensor cores);
+   K2, K3 and K5 only on the tensor cores);
 7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
    preprocessing on a synthetic two-volume CT Decathlon directory; masks
-   checked, end-to-end vol/s printed (K2 and K5 only on the tensor cores);
+   checked, end-to-end vol/s printed (K2, K4 and K5 only on the tensor
+   cores);
 8. the training step's kernels (K6, K1's data gradient, K7, K8) against
    their plain versions at its shapes, fp32 and bf16, timed;
 9. the training step: loss and gradients through the kernels (bf16, remat)
@@ -66,8 +70,8 @@ on failure:
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
     both stages' checkpoints and loss-vs-time artifacts, steps/s.
 
-The line before the last is the JSON kernel table (K1, K2, K5, K6 and K9
-with the launches of their tensor-core route beside all their launches, the
+The line before the last is the JSON kernel table (K1-K6 and K9 with the
+launches of their tensor-core route beside all their launches, the
 route their timed case took, and each kernel's fp32 case times beside the
 bf16 ones); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
@@ -95,9 +99,9 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
     "conv3x3x3_of_combine": ("medseg_torch/kernels/csrc/conv_tc.cu",
                              "medseg/kernels/conv_of.py:1205",
                              "dec2.conv1 (16+16)->16 x1ch @4x96^3"),
-    "outhead_of": ("medseg_torch/kernels/csrc/outhead_of.cu", "medseg/kernels/conv_of.py:1423",
+    "outhead_of": ("medseg_torch/kernels/csrc/outhead_tc.cu", "medseg/kernels/conv_of.py:1423",
                    "out head 16->16 scaled @4x96^3"),
-    "outhead_row_of": ("medseg_torch/kernels/csrc/outhead_row_of.cu",
+    "outhead_row_of": ("medseg_torch/kernels/csrc/outhead_tc.cu",
                        "medseg/kernels/conv_of.py:1596", "out head row 16->16 acc bfloat16 @6x96^3"),
     "conv3x3x3_wgrad_of": ("medseg_torch/kernels/csrc/wgrad_tc.cu",
                            "medseg/kernels/conv_of.py:914", "wgrad enc1.conv2 16->16 @4x96^3"),
@@ -108,18 +112,25 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
     "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_tc.cu", "medseg/kernels/conv3d.py:134",
                        "dec3.conv1 128->64 (feature size 32) @4x48^3"),
 }
-# K1, K2, K5, K6 and K9 have a second route, on the CUDA cores (fp32, C_in
-# of 1 or 4, K9 at C % 16 != 0); the timed bf16 case above takes the tensor
-# cores. "<name>[tc]" counts the launches that took the tensor-core route
+# K1, K2, K3, K4, K5, K6 and K9 have a second route, on the CUDA cores
+# (fp32, C_in of 1 or 4, K9 at C % 16 != 0, K3/K4 at other widths); the
+# timed bf16 case above takes the tensor cores. "<name>[tc]" counts the
+# launches that took the tensor-core route
 CUDA_CORE_SOURCES = {"conv3x3x3_of": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_of_cat2": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_of_combine": "medseg_torch/kernels/csrc/conv_of.cu",
+                     "outhead_of": "medseg_torch/kernels/csrc/outhead_of.cu",
+                     "outhead_row_of": "medseg_torch/kernels/csrc/outhead_row_of.cu",
                      "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu",
                      "conv3x3x3_flat": "medseg_torch/kernels/csrc/conv_flat.cu"}
 K1_TC, K6_TC = "conv3x3x3_of[tc]", "conv3x3x3_wgrad_of[tc]"
 # K5 and K2 run only on the tensor cores on the serving paths (feature sizes
-# 16 and 32)
+# 16 and 32), and so do K4 on the z-row walk and K3 on the flat walk and in
+# the fused forward (bf16, C 16 or 32, K_pad 8 or 16)
 TC_ONLY = ("conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+ZROW_TC_ONLY, FLAT_TC_ONLY = TC_ONLY + ("outhead_row_of",), TC_ONLY + ("outhead_of",)
+# the bf16 cases of phase 3 that must take the tensor cores
+SERVING_TC_REQUIRED = ("conv3x3x3_of_cat2", "outhead_of", "outhead_row_of")
 FS32 = 32  # the second feature size of the fused forward (K5 over (64+64) -> 64)
 FWD_REL_L2_BOUND = 5e-2  # bf16 kernels vs fp32 module forward on random weights
 # the training step, bf16 through the kernels vs the fp32 module without them
@@ -190,8 +201,8 @@ def phase_build(card: str) -> None:
 
 
 def all_launches() -> dict:
-    """Launches of each kernel, and ``<name>[tc]`` those of K1, K2, K5 and
-    K6 that took the tensor-core route."""
+    """Launches of each kernel, and ``<name>[tc]`` those of K1-K6 and K9
+    that took the tensor-core route."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
     wrappers = {fn.__name__: fn for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
@@ -270,7 +281,10 @@ def phase_forward(device, card: str):
     model_fp32 = fp32_twin(model)
     with torch.no_grad():
         ref = model_fp32(x, return_encoder_features=False)
+    reset_launches()
     got = fast_apply_v3(model, x, weights)[:, :14]
+    torch.cuda.synchronize()
+    launches = all_launches()
     if not torch.isfinite(got).all():
         raise RuntimeError("fused forward: non-finite logits")
     err = rel_l2(got, ref)
@@ -282,9 +296,10 @@ def phase_forward(device, card: str):
         )
     log(f"[forward] UNETR-B/16 4x96^3: fused bf16 vs module fp32 rel L2 {err:.3e} "
         f"(bound {FWD_REL_L2_BOUND}), argmax agreement {agree:.5f}; fused {fused_ms:.2f} ms, "
-        f"module fp32 {plain_ms:.2f} ms per batch of 4 [{card}]")
+        f"module fp32 {plain_ms:.2f} ms per batch of 4 [{card}]; launches {launches}")
     if not err <= FWD_REL_L2_BOUND:
         raise RuntimeError(f"fused forward rel L2 {err} above {FWD_REL_L2_BOUND}")
+    require_tc_only(launches, "the fused forward", FLAT_TC_ONLY)
     return model, model_fp32
 
 
@@ -319,7 +334,7 @@ def phase_forward32(device, card: str) -> dict:
         f"[{card}]; launches {launches}")
     if not err <= FWD_REL_L2_BOUND:
         raise RuntimeError(f"feature-32 fused forward rel L2 {err} above {FWD_REL_L2_BOUND}")
-    require_tc_only(launches, "the feature-32 forward")
+    require_tc_only(launches, "the feature-32 forward", FLAT_TC_ONLY)
     del model, model_fp32, ref
     torch.cuda.empty_cache()
     return launches
@@ -350,9 +365,10 @@ def require_launched(launches: dict, names, label: str) -> None:
         raise RuntimeError(f"kernels not launched on the {label} path: {missing}")
 
 
-def require_tc_only(launches: dict, label: str) -> None:
-    """K5 and K2 launched, every launch on the tensor cores."""
-    off = {name: (launches[name], launches[f"{name}[tc]"]) for name in TC_ONLY
+def require_tc_only(launches: dict, label: str, names=TC_ONLY) -> None:
+    """The kernels ``names`` (K5 and K2, and the walk's out head) launched,
+    every launch on the tensor cores."""
+    off = {name: (launches[name], launches[f"{name}[tc]"]) for name in names
            if not launches[name] or launches[name] != launches[f"{name}[tc]"]}
     if off:
         raise RuntimeError(f"{label}: (launches, tensor-core launches) {off}: expected all on "
@@ -386,8 +402,11 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
             reset_launches()
             got = validator.infer_volume(small)
             torch.cuda.synchronize()
-            require_launched(all_launches(), ZROW_KERNELS if route == "z-row" else FLAT_KERNELS,
+            launches = all_launches()
+            require_launched(launches, ZROW_KERNELS if route == "z-row" else FLAT_KERNELS,
                              f"small {route}")
+            require_tc_only(launches, f"small {route}",
+                            ZROW_TC_ONLY if route == "z-row" else FLAT_TC_ONLY)
             err = rel_l2(got, ref)
             log(f"[slice] {'x'.join(map(str, shape))} volume ({route} walk, acc {acc}): Validator "
                 f"(kernels, bf16) vs plain fp32 SWI rel L2 {err:.3e} (bound {FWD_REL_L2_BOUND})")
@@ -407,7 +426,7 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches "
             f"{launches[acc]}")
         require_launched(launches[acc], ZROW_KERNELS + (K1_TC,), "config-4")
-        require_tc_only(launches[acc], f"config 4 (acc {acc})")
+        require_tc_only(launches[acc], f"config 4 (acc {acc})", ZROW_TC_ONLY)
         counts = {name: launches[acc][name] for name in CONFIG4_BATCHES}
         if counts != CONFIG4_BATCHES:
             raise RuntimeError(f"config 4: launches {counts}, expected {CONFIG4_BATCHES}")
@@ -454,7 +473,7 @@ def phase_brats(device, card: str) -> dict:
         f"{18 / seconds:.1f} windows/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
         f"[{card}]; launches {launches}")
     require_launched(launches, FLAT_KERNELS, "config-8")
-    require_tc_only(launches, "config 8")
+    require_tc_only(launches, "config 8", FLAT_TC_ONLY)
     return launches
 
 
@@ -514,7 +533,7 @@ def phase_cli(device, card: str) -> dict:
         f"vol/s after it [{card}]; masks {mask.data.shape} int16, labels {labels.tolist()}; "
         f"launches {launches}")
     require_launched(launches, ZROW_KERNELS, "CLI")
-    require_tc_only(launches, "the CLI")
+    require_tc_only(launches, "the CLI", ZROW_TC_ONLY)
     return launches
 
 
@@ -846,9 +865,9 @@ def main() -> int:
     phase_build(card)
     table: dict = {}
     phase_kernels(device, card, table, kernel_check.kernel_cases, "kernel",
-                  tc_required=("conv3x3x3_of_cat2",))
+                  tc_required=SERVING_TC_REQUIRED)
     phase_kernels(device, card, table, kernel_check.brats_cases, "brats-kernel",
-                  tc_required=("conv3x3x3_of_cat2",))
+                  tc_required=SERVING_TC_REQUIRED)
     model, model_fp32 = phase_forward(device, card)
     paths = {"forward-32": phase_forward32(device, card)}
     paths["serving"] = phase_slice(model, model_fp32, device, card)
@@ -880,7 +899,7 @@ def main() -> int:
             "fp32_ms": row.get("fp32_ms"), "fp32_library_ms": row.get("fp32_library_ms"),
             "fp32_library_channels_last_ms": row.get("fp32_library_cl_ms"),
         }
-        if name in CUDA_CORE_SOURCES:  # K1, K2, K5, K6, K9: the launches of each of their routes
+        if name in CUDA_CORE_SOURCES:  # K1-K6, K9: the launches of each of their routes
             tc = f"{name}[tc]"
             kernel.update({
                 "cuda_core_source": CUDA_CORE_SOURCES[name], "timed_route": row["timed_route"],

@@ -38,6 +38,11 @@ _SIGNATURES = {
     # device, bf16, acc_bf16, z, r, az, bz, ar, br, kout, bias, scale, acc,
     # B, C, K, rd, rh, rw, Dp, Hp, Wp, starts, box0, box, stream
     "medseg_outhead_row": [_I] * 3 + [_P] * 10 + [_I] * 9 + [_P] * 4,
+    # device, z, r, az, bz, ar, br, kout, bias, scale, out, B, C, K, V, stream
+    "medseg_outhead_tc": [_I] + [_P] * 10 + [_I] * 3 + [ctypes.c_longlong, _P],
+    # device, acc_bf16, z, r, az, bz, ar, br, kout, bias, scale, acc, B, C, K,
+    # rd, rh, rw, Dp, Hp, Wp, starts, box0, box, stream
+    "medseg_outhead_row_tc": [_I] * 2 + [_P] * 10 + [_I] * 9 + [_P] * 4,
     # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
     # device, mode, residual, c_out, staging, x0, x1, x2, a0, b0, a1, b1,

@@ -36,6 +36,12 @@ K1, K2, K5 and K6 have two routes each, picked by shape and dtype alone:
   output channels; a 64-wide conv runs as two 32-wide launches over the
   halves of its weight (K6: of its cotangent), concatenated.
 
+K3 and K4 have two routes too, by ``outhead_tc_route``: bf16 with C a
+multiple of 16 and K_pad 8, 16 or 32 on the tensor cores
+(``csrc/outhead_tc.cu``, one core with K3's logits exit and K4's
+overlap-add exit), every other call on ``csrc/outhead_of.cu`` and
+``csrc/outhead_row_of.cu``.
+
 ``conv_has_kernel``, ``wgrad_has_kernel``, ``outhead_has_kernel`` and
 ``outhead_row_has_kernel`` are the width table of all of them: the wrappers
 raise on a width it lacks, and the routes that send work to the kernels
@@ -70,7 +76,9 @@ WGRAD_BLOCKS_PER_SM = 3  # 68 KB of shared memory per block: three fit in 227 KB
 OUTHEAD_MAX_C = 64  # MAXC of csrc/outhead_of.cu
 OUTHEAD_ROW_MAX_C = 32  # largest MAXC of csrc/outhead_row_of.cu
 OUTHEAD_ROW_MAX_K = 32  # largest MAXK of csrc/outhead_row_of.cu
-OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu: windows per launch
+OUTHEAD_ROW_MAX_B = 16  # MAXB of csrc/outhead_row_of.cu and outhead_tc.cu: windows per launch
+OUTHEAD_TC_MAX_C = 64  # widest C of csrc/outhead_tc.cu (K4's stays OUTHEAD_ROW_MAX_C)
+OUTHEAD_TC_K_PAD = (8, 16, 32)  # its K_pad instantiations: 8 * (n8 tiles)
 TC_SLICE = 16  # input channels per k-step of the tensor-core kernels
 TC_C_OUT = (16, 32, 64)  # output widths they are instantiated for, each one launch
 # per mode of csrc/conv_tc.cu (K9 is mode "flat"): the widest input, all
@@ -129,6 +137,15 @@ def wgrad_has_kernel(c: int, c_out: int, dtype: torch.dtype) -> bool:
     and a cotangent of ``c_out`` in ``dtype``."""
     return dtype in _DTYPES and (wgrad_tc_route(c, c_out, dtype) or c_out in WGRAD_C_OUT
                                  or c_out == SPLIT_C_OUT)
+
+
+def outhead_tc_route(c: int, k_pad: int, dtype: torch.dtype) -> bool:
+    """Whether K3 (and K4, within ``outhead_row_has_kernel``) with ``c``
+    input channels and ``k_pad`` classes in ``dtype`` runs on the tensor
+    cores (``csrc/outhead_tc.cu``): bf16, C a multiple of 16 up to 64, K_pad
+    one of ``OUTHEAD_TC_K_PAD``."""
+    return (dtype == torch.bfloat16 and c % TC_SLICE == 0 and 0 < c <= OUTHEAD_TC_MAX_C
+            and k_pad in OUTHEAD_TC_K_PAD)
 
 
 def outhead_has_kernel(c: int) -> bool:
@@ -490,13 +507,17 @@ def outhead_of(z, res, az, bz, ar, br, kout, bias, scale=None):
     if scale is not None:
         _check(scale, "scale", (bsz, 1, d, h, w), torch.float32, dev)
     out = torch.empty((bsz, k, d, h, w), dtype=dt, device=dev)
-    err = _build.lib().medseg_outhead(
-        dev.index, int(dt == torch.bfloat16), int(scale is not None),
-        _ptr(z), _ptr(res), _ptr(az), _ptr(bz), _ptr(ar), _ptr(br), _ptr(kout), _ptr(bias),
-        _ptr(scale), _ptr(out), bsz, c, k, d * h * w,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "outhead kernel")
+    operands = (_ptr(z), _ptr(res), _ptr(az), _ptr(bz), _ptr(ar), _ptr(br), _ptr(kout),
+                _ptr(bias), _ptr(scale), _ptr(out), bsz, c, k, d * h * w,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if outhead_tc_route(c, k, dt):
+        _build.check(_build.lib().medseg_outhead_tc(dev.index, *operands),
+                     "outhead tensor-core kernel")
+        outhead_of.tc_launches += 1
+    else:
+        err = _build.lib().medseg_outhead(dev.index, int(dt == torch.bfloat16),
+                                          int(scale is not None), *operands)
+        _build.check(err, "outhead kernel")
     outhead_of.launches += 1
     return out
 
@@ -547,18 +568,26 @@ def outhead_row_of(z, res, az, bz, ar, br, kout, bias, scale, starts, acc) -> No
     _check(scale, "scale", (bsz, 1, rd, rh, rw), torch.float32, dev)
     _check(acc, "acc", (k, *acc.shape[1:]), acc.dtype, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tc = outhead_tc_route(c, k, dt)
     for i in range(0, bsz, OUTHEAD_ROW_MAX_B):
         part = rows[i : i + OUTHEAD_ROW_MAX_B]
         nb = len(part)
         lo, ext = _window_box(part, (rd, rh, rw))
-        err = _build.lib().medseg_outhead_row(
-            dev.index, int(dt == torch.bfloat16), int(acc.dtype == torch.bfloat16),
+        operands = (
             _ptr(z[i]), _ptr(res[i]), _ptr(az[i]), _ptr(bz[i]), _ptr(ar[i]), _ptr(br[i]),
             _ptr(kout), _ptr(bias), _ptr(scale[i]), _ptr(acc), nb, c, k, rd, rh, rw,
             *acc.shape[1:], (ctypes.c_int * (3 * nb))(*[v for s in part for v in s]),
             (ctypes.c_int * 3)(*lo), (ctypes.c_int * 3)(*ext), stream,
         )
-        _build.check(err, "outhead row kernel")
+        acc_bf16 = int(acc.dtype == torch.bfloat16)
+        if tc:
+            _build.check(_build.lib().medseg_outhead_row_tc(dev.index, acc_bf16, *operands),
+                         "outhead row tensor-core kernel")
+            outhead_row_of.tc_launches += 1
+        else:
+            err = _build.lib().medseg_outhead_row(dev.index, int(dt == torch.bfloat16), acc_bf16,
+                                                  *operands)
+            _build.check(err, "outhead row kernel")
         outhead_row_of.launches += 1
 
 

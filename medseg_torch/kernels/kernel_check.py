@@ -147,6 +147,12 @@ def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) 
     # (w-starts 0, 48, 64 at 96^3), w-major as the walk orders them
     starts = [(8, 8 + gh * half, 8 + ws) for ws in (0, half, half + full // 6) for gh in range(2)]
     cases += outhead_row_cases(g, device, dtype, full, fs, k_pad, starts)
+    # and a row whose last window starts at W - roi off 8 voxels (W = 178 at
+    # 96^3: w-starts 0, 48, 82), as the walk's rows are wherever (W - roi) % 8 != 0
+    last = half + 34 * full // 96
+    starts = [(8, 8 + gh * half, 8 + ws) for ws in (0, half, last) for gh in range(2)]
+    cases += outhead_row_cases(g, device, dtype, full, fs, k_pad, starts,
+                               acc_dtypes=(torch.bfloat16,), label=f"x-starts 0/{half}/{last} ")
     return cases
 
 
@@ -160,10 +166,11 @@ def combine_case(name, up, y, x1, ay, by, ax, bx, weight, wres) -> Case:
                 flops=_conv_flops(up, weight.shape[0], 28) * 2, library=lib, library_cl=lib_cl)
 
 
-def outhead_row_cases(g, device, dtype, full, fs, k_pad, starts) -> list[Case]:
+def outhead_row_cases(g, device, dtype, full, fs, k_pad, starts,
+                      acc_dtypes=(torch.float32, torch.bfloat16), label="") -> list[Case]:
     """K4 on windows of ``full``^3 at ``starts`` (inside an accumulator that
-    leaves an 8-voxel margin around their box), with an fp32 and a bf16
-    accumulator holding random values."""
+    leaves an 8-voxel margin around their box), with accumulators of
+    ``acc_dtypes`` holding random values."""
     bsz = len(starts)
 
     def randn(*shape, scale=1.0, dt=dtype):
@@ -180,11 +187,11 @@ def outhead_row_cases(g, device, dtype, full, fs, k_pad, starts) -> list[Case]:
     acc_shape = (k_pad, *(a + e + 8 for a, e in zip(lo, ext)))
     n_vox = bsz * full**3
     cases = []
-    for acc_dtype in (torch.float32, torch.bfloat16):
+    for acc_dtype in acc_dtypes:
         acc = randn(*acc_shape, dt=acc_dtype)
         box = k_pad * ext[0] * ext[1] * ext[2] * acc.element_size()
         cases.append(Case(
-            f"out head row {fs}->{k_pad} acc {str(acc_dtype)[6:]} @{bsz}x{full}^3",
+            f"out head row {fs}->{k_pad} acc {str(acc_dtype)[6:]} {label}@{bsz}x{full}^3",
             conv_of.outhead_row_of, conv_of.outhead_row_of_plain,
             (z, res, *affine(), *affine(), *head, scale, torch.tensor(starts, dtype=torch.int32),
              acc),

@@ -58,20 +58,23 @@ PLANS = [
 ]
 
 
-def build_variants() -> tuple[dict[int, Path], str]:
-    """The library and its ablated variants (the other sources compiled
-    once), and ptxas's report of conv_tc.cu, built in one parallel batch."""
-    paths = {0: _build.library_path()}
+def build_variants(source: str = "conv_tc.cu",
+                   variants: dict | None = None) -> tuple[dict[str, Path], str]:
+    """The library (``"kernel"``) and its variants, ``source`` compiled with
+    each variant's extra nvcc flags (the other sources compiled once), and
+    ptxas's report of ``source``, built in one parallel batch."""
+    variants = variants or {name: [f"-DMEDSEG_TC_ABLATE={n}"] for n, name in VARIANTS.items() if n}
+    paths = {"kernel": _build.library_path()}
     nvcc, flags, out = _build._nvcc(), _build.NVCC_FLAGS, _build.BUILD_DIR
     sources = sorted(_build.CSRC.glob("*.cu"))
-    tc = _build.CSRC / "conv_tc.cu"
+    tc = _build.CSRC / source
     common = [out / f"ablate.{s.stem}.o" for s in sources if s != tc]
     cmds = [[nvcc, *flags, "-c", "-o", str(o), str(s)]
             for s, o in zip([s for s in sources if s != tc], common)]
-    for n in (1, 2):
-        cmds.append([nvcc, *flags, f"-DMEDSEG_TC_ABLATE={n}", "-c", "-o",
-                     str(out / f"ablate{n}.conv_tc.o"), str(tc)])
-    ptxas = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(out / "ptxas.conv_tc.o"), str(tc)]
+    objects = {name: out / f"ablate{n}.{tc.stem}.o" for n, name in enumerate(variants)}
+    for name, extra in variants.items():
+        cmds.append([nvcc, *flags, *extra, "-c", "-o", str(objects[name]), str(tc)])
+    ptxas = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(out / f"ptxas.{tc.stem}.o"), str(tc)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds + [ptxas]]
     errs = [p.communicate()[1] for p in procs]
@@ -79,10 +82,10 @@ def build_variants() -> tuple[dict[int, Path], str]:
         if p.returncode:
             raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{err}")
     links = []
-    for n in (1, 2):
-        paths[n] = out / f"libmedseg_kernels_ablate{n}.so"
-        links.append([nvcc, *flags, "-shared", "-o", str(paths[n]),
-                      str(out / f"ablate{n}.conv_tc.o"), *map(str, common)])
+    for n, name in enumerate(variants):
+        paths[name] = out / f"libmedseg_kernels_{tc.stem}_ablate{n}.so"
+        links.append([nvcc, *flags, "-shared", "-o", str(paths[name]), str(objects[name]),
+                      *map(str, common)])
     _build._run_all(links)
     return paths, errs[-1]
 
@@ -122,7 +125,7 @@ def main() -> int:
     for r in result["ptxas"]:
         print(f"[ptxas] {r['kernel']}: {r.get('registers')} registers, "
               f"{r.get('spill_stores')} B spill stores [{card}]", flush=True)
-    lib = _build.load(paths[0])
+    lib = _build.load(paths["kernel"])
     for label, mode, res, c_out, staging, c, cx in PLANS:
         plan = (ctypes.c_int * 4)()
         _build.check(lib.medseg_conv_tc_plan(0, conv_of._MODES[mode], res, c_out, staging, c, cx,
@@ -153,13 +156,13 @@ def main() -> int:
             args = (rand(bsz, c, *vol), wt, a, rand(bsz, c, dt=torch.float32))
             fn = conv_of.conv3x3x3_of
         inputs.append((name, fn, args))
-    for n, path in paths.items():
+    for variant, path in paths.items():
         _build._lib = _build.load(path)
         for name, fn, args in inputs:
             ms = time_ms(lambda: fn(*args))
-            result["times"].append({"variant": VARIANTS[n], "case": name, "ms": ms})
-            print(f"[ablate] {VARIANTS[n]:15s} {name:46s} {ms:8.3f} ms [{card}]", flush=True)
-    _build._lib = _build.load(paths[0])
+            result["times"].append({"variant": variant, "case": name, "ms": ms})
+            print(f"[ablate] {variant:15s} {name:46s} {ms:8.3f} ms [{card}]", flush=True)
+    _build._lib = _build.load(paths["kernel"])
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "ablate_conv_tc.json").write_text(json.dumps(result, indent=1))

@@ -48,6 +48,10 @@ _CONV_TC_KERNEL = re.compile(r"conv_tc_(async_)?kernel<\s*(?:\((?:[^()]|\([^()]*
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     # K6 on the tensor cores; its CUDA-core route keeps the plain names
     ("K6 conv3x3x3_wgrad_of, tensor cores", re.compile(r"wgrad_tc_(reduce_)?kernel")),
+    # K3 and K4: outhead_tc.cu on the tensor cores, outhead_of.cu and
+    # outhead_row_of.cu otherwise
+    ("K3 outhead_of, tensor cores", re.compile(r"outhead_tc_kernel")),
+    ("K4 outhead_row_of, tensor cores", re.compile(r"outhead_row_tc_kernel")),
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
     ("K4 outhead_row_of", re.compile(r"outhead_row_kernel")),
     ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),

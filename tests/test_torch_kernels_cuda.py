@@ -9,7 +9,9 @@ there with:
 
 Small shapes (2 x 16^3 and 8^3 volumes; the tensor-core routes of K1, K2,
 K5, K6 and K9 at a 9x17x18 volume, ragged against their 2x8x16 tile, and K5
-and K9 also at 9x17x24, where W % 8 == 0 takes the asynchronous staging);
+and K9 also at 9x17x24, where W % 8 == 0 takes the asynchronous staging;
+K3's at a 3x5x9 volume and K4's on windows at x-starts that differ mod 8, as
+``tests/test_torch_outhead_tc.py`` emulates them on the CPU);
 ``chip_smoke.py``
 repeats the comparisons at the serving path's, the training step's and the
 pretraining path's full shapes. Tolerances are those of
@@ -463,12 +465,134 @@ def test_each_wrapper_counts_its_launches(device):
         case.kernel(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
-    # K4: one launch per case (six windows each, fp32 and bf16 accumulators);
-    # K5: (32+32)->32 once, (64+64)->64 as two 32-wide launches in fp32
+    # K4: one launch per case (six windows each: fp32 and bf16 accumulators,
+    # and the row with an x-start off 8 voxels); K5: (32+32)->32 once,
+    # (64+64)->64 as two 32-wide launches in fp32
     assert counts == {
         "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 3, "conv3x3x3_of_combine": 2, "outhead_of": 1,
-        "outhead_row_of": 2, "conv3x3x3_wgrad_of": 0,
+        "outhead_row_of": 3, "conv3x3x3_wgrad_of": 0,
     }
+
+
+# K4's windows on the CPU emulation's shapes (tests/test_torch_outhead_tc.py):
+# 3x4x13 at x-starts 0, 7, 19, 32 (mod 8: 0, 7, 3, 0) in a 5x8x45 accumulator
+ROW_ROI, ROW_ACC = (3, 4, 13), (5, 8, 45)
+ROW_STARTS = [(0, 0, 0), (0, 2, 7), (1, 0, 19), (2, 3, 32)]
+
+
+def _head_args(g, device, bsz, c, k, vol, dtype=torch.bfloat16):
+    """z, res, the four affines, head, bias and blend weight of K3/K4."""
+    def aff():
+        return [(torch.rand((bsz, c), generator=g) + 0.5).to(device),
+                _randn(g, bsz, c, scale=0.5).to(device)]
+
+    return (_randn(g, bsz, c, *vol).to(device, dtype), _randn(g, bsz, c, *vol).to(device, dtype),
+            *aff(), *aff(), _randn(g, k, c, scale=c**-0.5).to(device, dtype),
+            _randn(g, k, scale=0.1).to(device), torch.rand((bsz, 1, *vol), generator=g).to(device))
+
+
+def _covered(starts, roi, shape):
+    mask = torch.zeros(shape, dtype=torch.bool)
+    for d, h, w in starts:
+        mask[d : d + roi[0], h : h + roi[1], w : w + roi[2]] = True
+    return mask
+
+
+@pytest.mark.parametrize("c,k", [(16, 8), (16, 16), (32, 32), (48, 16), (64, 32)])
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "unscaled"])
+def test_tc_outhead_matches_plain(device, c, k, scaled):
+    """K3's tensor-core route at a ragged volume (V = 3x5x9 = 135: a ragged
+    last segment, channel planes off 16-byte boundaries)."""
+    g = torch.Generator().manual_seed(c * 100 + k)
+    args = _head_args(g, device, 2, c, k, (3, 5, 9))
+    case = kernel_check.Case("tc outhead", conv_of.outhead_of, conv_of.outhead_of_plain,
+                             args if scaled else args[:-1])
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, torch.bfloat16)
+    assert r["ok"], r
+    assert conv_of.outhead_of.launches == conv_of.outhead_of.tc_launches == 1
+
+
+@pytest.mark.parametrize("c,k", [(16, 16), (16, 8), (32, 32), (32, 16)])
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16], ids=["acc-fp32", "acc-bf16"])
+def test_tc_outhead_row_matches_plain(device, c, k, acc_dtype):
+    """K4's tensor-core route on windows at x-starts that differ mod 8 in an
+    accumulator whose rows are not a multiple of 8; the voxels no window
+    covers keep their bits."""
+    g = torch.Generator().manual_seed(c * 100 + k + 1)
+    args = _head_args(g, device, len(ROW_STARTS), c, k, ROW_ROI)
+    acc = _randn(g, k, *ROW_ACC).to(device, acc_dtype)
+    starts = torch.tensor(ROW_STARTS, dtype=torch.int32)
+    case = kernel_check.Case(
+        "tc outhead row", conv_of.outhead_row_of, conv_of.outhead_row_of_plain,
+        (*args, starts, acc), inplace=10,
+        out_tol=kernel_check.OUT_TOL[acc_dtype] if acc_dtype == torch.bfloat16 else None)
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, torch.bfloat16)
+    assert r["ok"], r
+    assert conv_of.outhead_row_of.launches == conv_of.outhead_row_of.tc_launches == 1
+    got = acc.clone()
+    conv_of.outhead_row_of(*args, starts, got)
+    off = ~_covered(ROW_STARTS, ROW_ROI, ROW_ACC).to(device)
+    assert torch.equal(got[:, off], acc[:, off])
+
+
+def test_tc_outhead_row_splits_large_batches(device):
+    """18 windows of 2x2x9 along one row at x-starts 0, 2, ..., 34: two
+    launches (16 + 2), both on the tensor cores, each rounding the bf16
+    accumulator once."""
+    g = torch.Generator().manual_seed(18)
+    starts = [(0, 0, 2 * i) for i in range(18)]
+    args = _head_args(g, device, 18, 16, 8, (2, 2, 9))
+    acc = torch.zeros((8, 2, 2, 48), dtype=torch.bfloat16, device=device)
+    case = kernel_check.Case("tc outhead row x18", conv_of.outhead_row_of,
+                             conv_of.outhead_row_of_plain, (*args, starts, acc), inplace=10,
+                             out_tol=kernel_check.OUT_TOL[torch.bfloat16])
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, torch.bfloat16)
+    assert r["ok"], r
+    assert conv_of.outhead_row_of.launches == conv_of.outhead_row_of.tc_launches == 2
+
+
+def test_tc_outhead_reads_inputs_at_any_alignment(device):
+    """z and res that start 2 bytes past a 16-byte boundary (contiguous views
+    one element into their storage): the shifted loads of every item."""
+    g = torch.Generator().manual_seed(5)
+    args = list(_head_args(g, device, len(ROW_STARTS), 16, 16, ROW_ROI))
+    for i in (0, 1):
+        t = args[i]
+        view = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+        args[i] = view.copy_(t)
+        assert args[i].data_ptr() % 16 == 2
+    conv_of.reset_launches()
+    r = kernel_check.run_case(kernel_check.Case(
+        "tc outhead offset", conv_of.outhead_of, conv_of.outhead_of_plain, tuple(args)),
+        torch.bfloat16)
+    assert r["ok"], r
+    acc = torch.zeros((16, *ROW_ACC), device=device)
+    r = kernel_check.run_case(kernel_check.Case(
+        "tc outhead row offset", conv_of.outhead_row_of, conv_of.outhead_row_of_plain,
+        (*args, ROW_STARTS, acc), inplace=10), torch.bfloat16)
+    assert r["ok"], r
+    assert conv_of.outhead_of.tc_launches == conv_of.outhead_row_of.tc_launches == 1
+
+
+@pytest.mark.parametrize("c,k,dtype,tc", [
+    (16, 16, torch.bfloat16, True), (32, 8, torch.bfloat16, True),
+    (16, 16, torch.float32, False), (24, 16, torch.bfloat16, False),
+    (16, 24, torch.bfloat16, False),
+])
+def test_outhead_routes_count_tc_launches(device, c, k, dtype, tc):
+    """bf16 at the route's widths takes the tensor cores; fp32, C % 16 != 0
+    and K_pad 24 keep the kernels of outhead_of.cu and outhead_row_of.cu."""
+    g = torch.Generator().manual_seed(c + k)
+    args = _head_args(g, device, 2, c, k, (4, 6, 10), dtype)
+    conv_of.reset_launches()
+    conv_of.outhead_of(*args)
+    conv_of.outhead_row_of(*args, [(0, 0, 0), (1, 2, 5)], torch.zeros((k, 5, 8, 16), device=device))
+    torch.cuda.synchronize()
+    assert (conv_of.outhead_of.launches, conv_of.outhead_row_of.launches) == (1, 1)
+    assert conv_of.outhead_of.tc_launches == conv_of.outhead_row_of.tc_launches == int(tc)
 
 
 def test_wrapper_raises_instead_of_falling_back(device):

@@ -1,7 +1,8 @@
 """The profilers' bookkeeping (``profile_serving``, shared by
 ``profile_train`` and ``profile_pretrain``): kernel classes by name (both
-stagings of the tensor-core conv among them) and busy time
-as the union of kernel intervals (the profiling itself needs the card)."""
+stagings of the tensor-core conv and both routes of K3 and K4 among them)
+and busy time as the union of kernel intervals (the profiling itself needs
+the card)."""
 
 import pytest
 
@@ -39,6 +40,12 @@ from medseg_torch.tools import profile_serving as ps
     ("medseg::(anonymous namespace)::wgrad_tc_reduce_kernel(float const*, float*, int, int)",
      "K6 conv3x3x3_wgrad_of, tensor cores"),
     ("void medseg::outhead_kernel<__nv_bfloat16>(...)", "K3 outhead_of"),
+    ("void medseg::(anonymous namespace)::outhead_tc_kernel<1, 2>"
+     "(medseg::(anonymous namespace)::HeadTcArgs)", "K3 outhead_of, tensor cores"),
+    ("void medseg::(anonymous namespace)::outhead_row_tc_kernel<1, 2, __nv_bfloat16>"
+     "(medseg::(anonymous namespace)::RowTcArgs)", "K4 outhead_row_of, tensor cores"),
+    ("void medseg::(anonymous namespace)::outhead_row_tc_kernel<2, 1, float>"
+     "(medseg::(anonymous namespace)::RowTcArgs)", "K4 outhead_row_of, tensor cores"),
     ("void medseg::(anonymous namespace)::outhead_row_kernel<__nv_bfloat16, float, 16, 16>"
      "(medseg::(anonymous namespace)::RowArgs)", "K4 outhead_row_of"),
     ("void medseg::(anonymous namespace)::wgrad_kernel<__nv_bfloat16, 16>"

@@ -22,6 +22,10 @@ JAX package routes such widths to XLA or flax.
   feature size 32's dec3.conv1 takes the tensor cores in bf16 on both
   routes, fp32 stays on the CUDA cores, K1, K2 and K6 still stop at 64, and
   every width that had a kernel before the widening still has one.
+- K3 and K4's tensor-core route (``outhead_tc_route``) inside their width
+  table, which it leaves as it was (K3: C <= 64, any K_pad; K4: C <= 32,
+  K_pad <= 32): the chain's out head at feature sizes 16 and 32 and 4 or 14
+  classes takes it in bf16 only.
 """
 
 import pytest
@@ -211,3 +215,27 @@ def test_no_width_lost_its_kernel(mode, dtype):
     for c in (8, 16, 32, 64, 128, 136):
         for c_out in (16, 32, 48, 64, 128):  # K9's CUDA-core widths stay the table
             assert conv_flat.has_kernel(c, c_out) == (c % 8 == 0 and c <= 128 and c_out % 16 == 0)
+
+
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 48, 64, 80])
+@pytest.mark.parametrize("k_pad", [8, 16, 24, 32, 40])
+def test_outhead_route_within_the_unchanged_width_table(c, k_pad):
+    assert conv_of.outhead_has_kernel(c) == (c <= 64)
+    assert conv_of.outhead_row_has_kernel(c, k_pad) == (c <= 32 and k_pad <= 32)
+    tc = conv_of.outhead_tc_route(c, k_pad, BF)
+    assert tc == (c % 16 == 0 and c <= 64 and k_pad in (8, 16, 32))
+    assert not conv_of.outhead_tc_route(c, k_pad, torch.float32)
+    if tc:
+        assert conv_of.outhead_has_kernel(c)
+
+
+@pytest.mark.parametrize("fs", [16, 32])
+@pytest.mark.parametrize("n_classes", [4, 14])
+def test_served_out_heads_take_the_tensor_cores(fs, n_classes):
+    """The out head of every model the chain serves on the card (feature
+    sizes 16 and 32; BraTS' 4 classes pad to 8, 14 to 16) is on the route."""
+    model = _model(fs, out_channels=n_classes)
+    assert tuo.chain_has_kernels(model, 1)
+    k_pad = tuo.class_pad(n_classes)
+    assert conv_of.outhead_tc_route(fs, k_pad, BF)
+    assert conv_of.outhead_row_has_kernel(fs, k_pad)
