@@ -46,7 +46,10 @@ on failure:
    checked, end-to-end vol/s printed (K2, K4 and K5 only on the tensor
    cores);
 8. the training step's kernels (K6, K1's data gradient, K7, K8) against
-   their plain versions at its shapes, fp32 and bf16, timed;
+   their plain versions at its shapes, fp32 and bf16, timed (K7 and K8 also
+   on 2 classes and on a ragged 4x97^3 volume, and by their device kernels'
+   durations in the profiler's trace); then two K7 calls on config 5's bf16
+   logits, whose sums must be bitwise equal;
 9. the training step: loss and gradients through the kernels (bf16, remat)
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
@@ -241,7 +244,7 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
             entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
             if dtype == torch.bfloat16 and case.name == KERNELS[name][2]:
                 entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms", "library_cl_ms")})
+                                                "library_ms", "library_cl_ms", "device_ms")})
                 entry["timed_route"] = route
             if dtype == torch.float32 and case.name == KERNELS[name][2]:
                 entry.update({f"fp32_{k}": r[k] for k in ("ms", "library_ms", "library_cl_ms")})
@@ -250,6 +253,8 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
             lib = "" if r["library_ms"] is None else f" library {r['library_ms']:8.3f} ms"
             if r["library_cl_ms"] is not None:
                 lib += f" (channels_last {r['library_cl_ms']:.3f})"
+            if r["device_ms"] is not None:
+                lib += f" device {r['device_ms']:.4f} ms"
             log(f"[{label}] {str(dtype)[6:]:8s} {case.name:44s} {route:12s} "
                 f"out_err {r['out_err']:.2e} "
                 f"sums_err {r['stats_err']:.2e} kernel {r['ms']:8.3f} ms plain "
@@ -260,6 +265,25 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
         torch.cuda.empty_cache()
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
+
+
+def phase_loss_repeat(device, card: str) -> None:
+    """Two K7 calls on the same bf16 config-5 logits must return the same
+    bits: the blocks' partial sums are added in a fixed order."""
+    from medseg_torch.kernels import loss_of
+
+    g = torch.Generator().manual_seed(4)
+    shape = (TRAIN_BATCH, CROP, CROP, CROP)
+    logits = (torch.randn((TRAIN_BATCH, N_CLASSES, *shape[1:]), generator=g) * 2.0).to(
+        device, torch.bfloat16)
+    labels = torch.randint(0, N_CLASSES, shape, generator=g, dtype=torch.int32).to(device)
+    first = [t.clone() for t in loss_of.dice_ce_sums(logits, labels)]
+    second = loss_of.dice_ce_sums(logits, labels)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[train-kernel] dice_ce_sums twice on {N_CLASSES} classes @{TRAIN_BATCH}x{CROP}^3 bf16: "
+        f"{'bitwise equal' if same else 'DIFFERENT'} [{card}]")
+    if not same:
+        raise RuntimeError("dice_ce_sums: two calls on the same inputs gave different sums")
 
 
 def fp32_twin(model):
@@ -878,6 +902,7 @@ def main() -> int:
     paths["cli"] = phase_cli(device, card)
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
+    phase_loss_repeat(device, card)
     paths["train"] = phase_train(device, card)
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.flat_cases, "flat-kernel",
@@ -896,6 +921,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
+            "device_ms": row.get("device_ms"),
             "fp32_ms": row.get("fp32_ms"), "fp32_library_ms": row.get("fp32_library_ms"),
             "fp32_library_channels_last_ms": row.get("fp32_library_cl_ms"),
         }

@@ -54,10 +54,12 @@ _SIGNATURES = {
     "medseg_wgrad_tc": [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P],
     # device, bf16, co_tile, x, w, out, B, C, C_out, D, H, W, stream
     "medseg_conv_flat": [_I] * 3 + [_P] * 3 + [_I] * 6 + [_P],
-    # device, bf16, logits, labels, ce, inter, pred, ground, B, K, V, blocks, stream
-    "medseg_dice_ce_sums": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _P],
-    # device, bf16, logits, labels, ca, cb, cec, dlogits, B, K, V, blocks, stream
-    "medseg_dice_ce_bwd": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _P],
+    # device, which (0 sums, 1 bwd), bf16, K, B, V, blocks (1 int out)
+    "medseg_dice_ce_grid": [_I] * 5 + [ctypes.c_longlong, _P],
+    # device, bf16, logits, labels, out, partial, B, K, V, vec, blocks, stream
+    "medseg_dice_ce_sums": [_I] * 2 + [_P] * 4 + [_I] * 2 + [ctypes.c_longlong, _I, _I, _P],
+    # device, bf16, logits, labels, ca, cb, cec, dlogits, B, K, V, vec, blocks, stream
+    "medseg_dice_ce_bwd": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -12,7 +12,9 @@ kernels the training step adds (K6, K1's data gradient, K7 and K8);
 ``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
 and the plain version, and returns the largest errors, the least time the
 card could take for the work (``bound_ms``) and, when timed, the kernel's,
-the plain version's and the library call's times. ``chip_smoke.py`` runs it
+the plain version's and the library call's times; for a case that names
+its device kernels (K7, K8), also their time from the profiler's trace
+(``device_ms``), which no host cost of the wrapper can enter. ``chip_smoke.py`` runs it
 at the main path's shapes, ``tests/test_torch_kernels_cuda.py`` at small
 ones.
 
@@ -21,17 +23,23 @@ outputs 1e-4 in fp32 (both sides sum in fp32, only the order differs) and
 2e-2 in bf16 (one bf16 rounding of the output; the fp32 filter gradient
 sums identically rounded operands), and 2e-2 for a bf16 accumulator
 updated by K4 (one bf16 rounding of the sum); sums of shape (B,) or (B, C)
-1e-3 (the kernels' atomics add in a varying order). K4 updates its
+1e-3 (the kernels add in another order, some with atomics in a varying
+one). K4 updates its
 accumulator in place: each side runs on its own copy of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import re
+import tempfile
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
@@ -59,6 +67,7 @@ class Case:
     nbytes: float | None = None  # bytes the function must move, where not its inputs + outputs
     inplace: int | None = None  # index of the argument the function updates (its output)
     out_tol: float | None = None  # output tolerance, where not OUT_TOL[compute dtype]
+    device_kernels: str | None = None  # pattern on the names of its device kernels
 
 
 def _conv_flops(x: torch.Tensor, c_out: int, taps: int = 27) -> float:
@@ -276,7 +285,8 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
     each routed conv's (C, CO), K1's data gradient at 16->32 (dec2.conv1) and
     32->64 (dec3.conv1: one launch on the tensor cores in bf16, two 32-wide
     launches on the CUDA cores in fp32), K7 and K8 on (batch, n_classes,
-    full^3) logits."""
+    full^3) logits, on 2 classes (the spleen and heart tasks) and on a
+    ragged (full + 1)^3 volume (V % 8 == 1: one voxel at a time)."""
     g = torch.Generator().manual_seed(1)
     half = full // 2
 
@@ -307,21 +317,31 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
             c.conv3x3x3_of_plain, (cot, w_t), flops=_conv_flops(cot, c_in),
             library=lib, library_cl=lib_cl,
         ))
-    logits = randn(batch, n_classes, full, full, full, scale=2.0)
-    labels = torch.randint(0, n_classes, (batch, full, full, full), generator=g,
+    for k, s in ((n_classes, full), (2, full), (n_classes, full + 1)):
+        cases += loss_cases(g, device, dtype, batch, k, s)
+    return cases
+
+
+def loss_cases(g, device, dtype, batch: int, n_classes: int, edge: int) -> list[Case]:
+    """K7 and K8 on (batch, n_classes, edge^3) logits (N(0, 4)) with uniform
+    labels, K8 on random coefficients."""
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dt)
+
+    logits = randn(batch, n_classes, edge, edge, edge, scale=2.0)
+    labels = torch.randint(0, n_classes, (batch, edge, edge, edge), generator=g,
                            dtype=torch.int32).to(device)
-    n = batch * full**3 * n_classes
-    cases.append(Case(
-        f"dice_ce_sums {n_classes} classes @{batch}x{full}^3", loss_of.dice_ce_sums,
-        loss_of.dice_ce_sums_plain, (logits, labels), flops=6.0 * n, fp32_math=True,
-    ))
+    n = batch * edge**3 * n_classes
     coefs = (randn(batch, n_classes, dt=torch.float32), randn(batch, n_classes, dt=torch.float32),
              (torch.rand((batch,), generator=g) + 0.5).to(device))
-    cases.append(Case(
-        f"dice_ce_bwd {n_classes} classes @{batch}x{full}^3", loss_of.dice_ce_bwd,
-        loss_of.dice_ce_bwd_plain, (logits, labels, *coefs), flops=13.0 * n, fp32_math=True,
-    ))
-    return cases
+    shape = f"{n_classes} classes @{batch}x{edge}^3"
+    return [
+        Case(f"dice_ce_sums {shape}", loss_of.dice_ce_sums, loss_of.dice_ce_sums_plain,
+             (logits, labels), flops=6.0 * n, fp32_math=True, device_kernels="dice_ce_sums"),
+        Case(f"dice_ce_bwd {shape}", loss_of.dice_ce_bwd, loss_of.dice_ce_bwd_plain,
+             (logits, labels, *coefs), flops=13.0 * n, fp32_math=True,
+             device_kernels="dice_ce_bwd"),
+    ]
 
 
 def flat_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) -> list[Case]:
@@ -382,6 +402,38 @@ def time_ms(fn: Callable, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn: Callable, pattern: str, reps: int = 10,
+              flush: Callable | None = None) -> float:
+    """Mean device time per call of the kernels whose names match
+    ``pattern``: the kernels' durations in ``torch.profiler``'s trace over
+    ``reps`` calls after one warm call, so no host time enters it;
+    ``flush()`` (not counted) runs before each call where given (read a
+    buffer larger than the L2: a flush by writes leaves dirty lines that the
+    timed kernel then pays to write back)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns a trace without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        durs = [e["dur"] for e in events
+                if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
+        if durs:
+            return sum(durs) / 1e3 / reps
+    raise RuntimeError(f"the profiler recorded no device kernel matching {pattern!r}")
+
+
 def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
     """Kernel vs plain on the case's inputs: relative errors (outputs and
     sums separately), the largest absolute output error, pass/fail, the
@@ -423,4 +475,6 @@ def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
         result["plain_ms"] = time_ms(lambda: case.plain(*case.args, **case.kwargs))
         result["library_ms"] = None if case.library is None else time_ms(case.library)
         result["library_cl_ms"] = None if case.library_cl is None else time_ms(case.library_cl)
+        result["device_ms"] = None if case.device_kernels is None else device_ms(
+            lambda: case.kernel(*case.args, **case.kwargs), case.device_kernels)
     return result

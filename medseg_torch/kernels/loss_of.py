@@ -16,10 +16,21 @@ The logits are class-major NCDHW ``(B, K, D, H, W)`` (fp32 or bf16) as the
 model emits them, so the kernels take them as they are; labels are int32
 ``(B, D, H, W)``. On a CPU tensor each wrapper runs its plain version; on a
 CUDA tensor it launches its kernel (``csrc/loss_of.cu``) or raises. Each
-wrapper's ``launches`` counts its kernel launches.
+wrapper's ``launches`` counts its calls that launched: K7 is two device
+kernels (the blocks' partial sums, then their fixed-order finish), counted
+as one.
+
+The kernels walk a batch element's voxels in groups of ``VEC`` (8 in bf16, 4
+in fp32: one 16-byte word per class plane) where ``V % VEC == 0`` and the
+tensors start on 16 bytes, else one voxel at a time (``vector_route``);
+the grid's blocks per batch element come once per shape from the
+instantiation's occupancy on the card (``_blocks``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +40,21 @@ from medseg_torch.kernels.conv_of import _check, _device_of, _ptr
 
 _NR = 1e-5  # MONAI smooth_nr / smooth_dr
 _DR = 1e-5
-MAX_CLASSES = 16  # LMAXK of csrc/loss_of.cu: the class values a thread holds in registers
+MAX_CLASSES = 16  # LMAXK of csrc/loss_of.cu: the generic instantiation's classes
 _DTYPES = (torch.float32, torch.bfloat16)
-_BLOCKS_PER_SM = 8  # 256-thread blocks per SM the grid is sized for
+THREADS = 256  # LTHREADS of csrc/loss_of.cu
+
+
+def vec_of(dtype: torch.dtype) -> int:
+    """Voxels of one 16-byte word of a class plane."""
+    return 16 // (2 if dtype == torch.bfloat16 else 4)
+
+
+def vector_route(n_vox: int, dtype: torch.dtype, *tensors: torch.Tensor) -> bool:
+    """Whether the kernels take 16-byte words (else one voxel at a time):
+    every class plane starts on 16 bytes when V % VEC == 0 and the tensors
+    do. The wrappers pass it to the kernels, which trust it."""
+    return n_vox % vec_of(dtype) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_labels(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -79,10 +102,15 @@ def dice_ce_bwd_plain(logits, labels, ca, cb, cec):
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _grid(dev: torch.device, bsz: int, n_vox: int) -> int:
-    """Blocks per batch element: the SMs' worth, at most one per 256 voxels."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n_vox // 256), -(-_BLOCKS_PER_SM * sms // bsz)))
+@functools.lru_cache(maxsize=None)
+def _blocks(device: int, which: int, bf16: int, k: int, bsz: int, n_vox: int) -> int:
+    """Blocks per batch element of K7 (``which`` 0) or K8 (1): as many as the
+    card holds at once, shared by the batch, at most one per 256 groups;
+    asked of the library once per shape."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().medseg_dice_ce_grid(device, which, bf16, k, bsz, n_vox,
+                                                  ctypes.addressof(out)), "dice_ce grid")
+    return out.value
 
 
 def _check_logits(logits: torch.Tensor) -> tuple[torch.device, int, int, int]:
@@ -105,14 +133,19 @@ def dice_ce_sums(logits, labels):
         return dice_ce_sums_plain(logits, labels)
     dev, bsz, k, n_vox = _check_logits(logits)
     _check(labels, "labels", labels.shape, torch.int32, dev)
-    ce = torch.zeros((bsz,), dtype=torch.float32, device=dev)
-    inter, pred, ground = (torch.zeros((bsz, k), dtype=torch.float32, device=dev) for _ in range(3))
+    bf16 = int(logits.dtype == torch.bfloat16)
+    blocks = _blocks(dev.index, 0, bf16, k, bsz, n_vox)
+    n = 3 * k + 1
+    # the outputs ce (B,), inter, pred, ground (B, K), then the blocks' partials
+    buf = torch.empty(bsz * n * (1 + blocks), dtype=torch.float32, device=dev)
     err = _build.lib().medseg_dice_ce_sums(
-        dev.index, int(logits.dtype == torch.bfloat16), _ptr(logits), _ptr(labels), _ptr(ce),
-        _ptr(inter), _ptr(pred), _ptr(ground), bsz, k, n_vox, _grid(dev, bsz, n_vox),
+        dev.index, bf16, _ptr(logits), _ptr(labels), _ptr(buf), _ptr(buf) + 4 * bsz * n, bsz, k,
+        n_vox, int(vector_route(n_vox, logits.dtype, logits, labels)), blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "dice_ce_sums kernel")
+    ce = buf[:bsz]
+    inter, pred, ground = buf[bsz:bsz * n].view(3, bsz, k).unbind(0)
     dice_ce_sums.launches += 1
     return ce, inter, pred, ground
 
@@ -129,10 +162,11 @@ def dice_ce_bwd(logits, labels, ca, cb, cec):
     _check(cb, "cb", (bsz, k), torch.float32, dev)
     _check(cec, "cec", (bsz,), torch.float32, dev)
     dl = torch.empty_like(logits)
+    bf16 = int(logits.dtype == torch.bfloat16)
     err = _build.lib().medseg_dice_ce_bwd(
-        dev.index, int(logits.dtype == torch.bfloat16), _ptr(logits), _ptr(labels), _ptr(ca),
-        _ptr(cb), _ptr(cec), _ptr(dl), bsz, k, n_vox, _grid(dev, bsz, n_vox),
-        torch.cuda.current_stream(dev).cuda_stream,
+        dev.index, bf16, _ptr(logits), _ptr(labels), _ptr(ca), _ptr(cb), _ptr(cec), _ptr(dl), bsz,
+        k, n_vox, int(vector_route(n_vox, logits.dtype, logits, labels, dl)),
+        _blocks(dev.index, 1, bf16, k, bsz, n_vox), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "dice_ce_bwd kernel")
     dice_ce_bwd.launches += 1

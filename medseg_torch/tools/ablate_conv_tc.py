@@ -91,7 +91,8 @@ def build_variants(source: str = "conv_tc.cu",
 
 
 def spills(report: str) -> list[dict]:
-    """Per kernel of ptxas's report: registers, spill stores and loads."""
+    """Per kernel of ptxas's report: registers, spill stores and loads,
+    static shared memory."""
     demangle = shutil.which("cu++filt") or str(Path(_build._nvcc()).parent / "cu++filt")
     rows, name = [], None
     for line in report.splitlines():
@@ -106,6 +107,9 @@ def spills(report: str) -> list[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and rows[-1]["kernel"] == name:
             rows[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                rows[-1]["smem"] = int(m.group(1))
     if Path(demangle).exists():
         names = subprocess.run([demangle], input="\n".join(r["kernel"] for r in rows),
                                capture_output=True, text=True).stdout.splitlines()

@@ -55,7 +55,7 @@ _CLASSES = (  # (class, pattern on the kernel's name), first match wins
     ("K3 outhead_of", re.compile(r"outhead_kernel")),
     ("K4 outhead_row_of", re.compile(r"outhead_row_kernel")),
     ("K6 conv3x3x3_wgrad_of", re.compile(r"wgrad_kernel|wgrad_reduce_kernel")),
-    ("K7 dice_ce_sums", re.compile(r"dice_ce_sums_kernel")),
+    ("K7 dice_ce_sums", re.compile(r"dice_ce_sums_(finish_)?kernel")),
     ("K8 dice_ce_bwd", re.compile(r"dice_ce_bwd_kernel")),
     ("K9 conv3x3x3_flat", re.compile(r"conv_flat_kernel")),
     ("SDPA attention", re.compile(r"fmha|flash|attention", re.I)),

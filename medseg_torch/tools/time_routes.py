@@ -1,15 +1,21 @@
-"""K3, K4, K5 and K9 at the main path's shapes, timed on one tree of the
-repository, so that two trees can be compared in one call on one card
+"""K3, K4, K5, K7, K8 and K9 at the main path's shapes, timed on one tree of
+the repository, so that two trees can be compared in one call on one card
 (parent, change, change, parent):
 
-    python medseg_torch/tools/time_routes.py [--tree DIR] [--label NAME] [--kernels K3,K4]
+    python medseg_torch/tools/time_routes.py [--tree DIR] [--label NAME] [--kernels K7,K8]
 
 Imports ``medseg_torch`` from ``DIR`` (default: the checkout holding this
 file), builds that tree's kernels, and times each case's wrapper with CUDA
 events (that tree's ``kernel_check.time_ms``: 10 calls after 2 warm calls),
 beside ``F.conv3d`` on the same inputs for the convs (contiguous and
 channels_last_3d; for K5 over the concatenated input, without its residual
-tap and statistics; fp32 with TF32 off); K3 and K4 have no library call.
+tap and statistics; fp32 with TF32 off); K3, K4, K7 and K8 have no library
+call. K7 and K8 (the config-5 case in bf16 and fp32, 2 classes, a ragged
+volume) are also timed by their device kernels' durations in the
+profiler's trace (``kernel_check.device_ms`` of the tree holding this file,
+for both trees), warm and with the 50 MB L2 flushed before each call, and
+one DiceCE forward and backward (``dice_ce_fused``) is profiled for its
+device launches, the kernels and the scalar glue of ``DiceCEFn``.
 The inputs come from one seeded generator, the same in every tree. Prints
 one line per case with the route it took (the tree's ``tc_launches``) and
 its bound (``kernel_check``'s reckoning: each input read once, each output
@@ -20,6 +26,7 @@ writes ``chiprun_out/time_routes_<label>.json``. Needs one NVIDIA GPU.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -55,6 +62,19 @@ HEAD_CASES = [
      BF, BF),
     ("K4 BraTS 16->8 acc bf16 @4x128^3", "outhead_row", 16, 8, BRATS_STARTS, 128, BF, BF),
 ]
+# (name, kernel, K, batch, volume, dtype): config 5's logits (4 x 14 x 96^3),
+# the two-class tasks' and a ragged volume (V % 8 == 1: one voxel at a time)
+LOSS_CASES = [
+    (f"{kn} 14 classes{' fp32' if dt == F32 else ''} @4x96^3", kernel, 14, 4, (96, 96, 96), dt)
+    for kernel, kn in (("sums", "K7"), ("bwd", "K8")) for dt in (BF, F32)
+] + [
+    (f"{kn} 2 classes @4x96^3", kernel, 2, 4, (96, 96, 96), BF)
+    for kernel, kn in (("sums", "K7"), ("bwd", "K8"))
+] + [
+    (f"{kn} 14 classes ragged @4x97^3", kernel, 14, 4, (97, 97, 97), BF)
+    for kernel, kn in (("sums", "K7"), ("bwd", "K8"))
+]
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
 def conv_case(conv_of, conv_flat, rand, kernel, c, c_out, bsz, edge):
@@ -106,16 +126,57 @@ def head_case(conv_of, rand, g, dev, kernel, c, k, batch, edge, acc_dtype):
     return wrapper, lambda: wrapper(*args, starts, acc), flops, nbytes
 
 
+def loss_case(loss_of, g, dev, kernel, k, bsz, vol, dt):
+    """(wrapper, call, FLOP, bytes, inputs) of a K7 or K8 case: logits
+    N(0, 4), labels uniform in [0, K), K8's coefficients random."""
+    logits = (torch.randn((bsz, k, *vol), generator=g) * 2.0).to(dev, dt)
+    labels = torch.randint(0, k, (bsz, *vol), generator=g, dtype=torch.int32).to(dev)
+    n = logits.numel()
+    nbytes = n * logits.element_size() + 4 * labels.numel()
+    if kernel == "sums":
+        wrapper = loss_of.dice_ce_sums
+        return wrapper, lambda: wrapper(logits, labels), 6.0 * n, nbytes + 4 * bsz * (3 * k + 1), (
+            logits, labels)
+    coefs = (torch.randn((bsz, k), generator=g).to(dev), torch.randn((bsz, k), generator=g).to(dev),
+             (torch.rand((bsz,), generator=g) + 0.5).to(dev))
+    wrapper = loss_of.dice_ce_bwd
+    return wrapper, lambda: wrapper(logits, labels, *coefs), 13.0 * n, (
+        2 * nbytes - 4 * labels.numel() + 4 * (2 * bsz * k + bsz)), (logits, labels)
+
+
+def loss_launches(loss_of, profile, trace, logits, labels) -> float:
+    """Device kernels of one DiceCE forward and backward through the fused
+    loss (K7, K8 and the scalar glue of ``DiceCEFn``), from the trace."""
+    x = logits.detach().clone().requires_grad_()
+
+    def step():
+        x.grad = None
+        loss_of.dice_ce_fused(x, labels).backward()
+
+    step()
+    return profile(step, 1, trace)["kernels_per_run"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--kernels", default="K3,K4,K5,K9", help="the kernels whose cases run")
+    ap.add_argument("--kernels", default="K3,K4,K5,K7,K8,K9",
+                    help="the kernels whose cases run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_routes: needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(args.tree).resolve()))
-    from medseg_torch.kernels import _build, conv_flat, conv_of, kernel_check
+    from medseg_torch.kernels import _build, conv_flat, conv_of, kernel_check, loss_of
+    from medseg_torch.tools.profile_serving import OUT_DIR, profile
+
+    # the device timing of the tree holding this file, the same for both trees
+    spec = importlib.util.spec_from_file_location(
+        "_kernel_check_of_this_tree", Path(__file__).resolve().parents[1] / "kernels" /
+        "kernel_check.py")
+    this_check = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = this_check  # dataclasses look their module up there
+    spec.loader.exec_module(this_check)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -163,6 +224,43 @@ def main(argv=None) -> int:
               f"{ms:8.3f} ms ({row['tflops']:6.1f} TFLOP/s, {row['gbytes_per_s']:6.0f} GB/s) "
               f"bound {bound:.3f} ({row['bound_by']}){lib} [{card}]", flush=True)
         del call, libs
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    for name, kernel, k, bsz, vol, dt in LOSS_CASES:
+        if name.split()[0] not in wanted:
+            continue
+        wrapper, call, flops, nbytes, (logits, labels) = loss_case(loss_of, g, dev, kernel, k, bsz,
+                                                                   vol, dt)
+        launches_before = wrapper.launches
+        call()
+        torch.cuda.synchronize()
+        launches = wrapper.launches - launches_before
+        ms = kernel_check.time_ms(call)
+        pattern = f"dice_ce_{kernel}"
+        dev_ms = this_check.device_ms(call, pattern)
+        cold_ms = this_check.device_ms(call, pattern, flush=l2.sum)
+        bound = 1e3 * max(flops / kernel_check.PEAK_FLOPS[F32],
+                          nbytes / kernel_check.HBM_BYTES_PER_S)
+        route = "voxel per thread"  # a tree without the 16-byte route
+        if hasattr(loss_of, "vector_route"):
+            route = ("16-byte words" if loss_of.vector_route(labels[0].numel(), dt, logits, labels)
+                     else "one voxel at a time")
+        row = {"case": name, "tree": args.label, "route": route, "launches": launches, "ms": ms,
+               "device_ms": dev_ms, "device_cold_ms": cold_ms, "bound_ms": bound,
+               "bound_by": "bytes", "gbytes_per_s": nbytes / cold_ms / 1e6, "card": card}
+        if kernel == "bwd" and k == 14 and dt == BF and vol == (96, 96, 96):
+            row["loss_launches_per_step"] = loss_launches(loss_of, profile,
+                                                          OUT_DIR / f"trace_loss_{args.label}.json",
+                                                          logits, labels)
+        rows.append(row)
+        step = row.get("loss_launches_per_step")
+        print(f"[time_routes {args.label}] {name:44s} {route:20s} x{launches} "
+              f"wrapper {ms:8.3f} ms, device {dev_ms:8.4f} ms warm / {cold_ms:8.4f} ms L2 flushed "
+              f"({row['gbytes_per_s']:6.0f} GB/s), bound {bound:.4f} ({bound / cold_ms:.0%} of it)"
+              + ("" if step is None else f"; DiceCE fwd+bwd {step:.0f} device launches")
+              + f" [{card}]", flush=True)
+        del call, logits, labels
         torch.cuda.empty_cache()
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)

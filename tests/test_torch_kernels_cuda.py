@@ -11,7 +11,9 @@ Small shapes (2 x 16^3 and 8^3 volumes; the tensor-core routes of K1, K2,
 K5, K6 and K9 at a 9x17x18 volume, ragged against their 2x8x16 tile, and K5
 and K9 also at 9x17x24, where W % 8 == 0 takes the asynchronous staging;
 K3's at a 3x5x9 volume and K4's on windows at x-starts that differ mod 8, as
-``tests/test_torch_outhead_tc.py`` emulates them on the CPU);
+``tests/test_torch_outhead_tc.py`` emulates them on the CPU; K7 and K8 at
+the ragged shapes of ``tests/test_torch_loss_vec.py``, on both routes, and
+K7's sums bitwise from call to call);
 ``chip_smoke.py``
 repeats the comparisons at the serving path's, the training step's and the
 pretraining path's full shapes. Tolerances are those of
@@ -137,11 +139,65 @@ def test_training_kernels_count_their_launches(device):
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS + loss_of.KERNELS}
     # fp32 takes the CUDA-core routes: K1's data gradient 16->32 is one
-    # launch, 32->64 two 32-wide launches
+    # launch, 32->64 two 32-wide launches; K7 and K8 one each per loss case
+    # (14 classes, 2 classes, a ragged volume), K7's two device kernels
+    # counted as one
     assert counts == {
         "conv3x3x3_of": 3, "conv3x3x3_of_cat2": 0, "conv3x3x3_of_combine": 0, "outhead_of": 0,
-        "outhead_row_of": 0, "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 1, "dice_ce_bwd": 1,
+        "outhead_row_of": 0, "conv3x3x3_wgrad_of": 6, "dice_ce_sums": 3, "dice_ce_bwd": 3,
     }
+
+
+# K7 and K8 at the shapes that tests/test_torch_loss_vec.py emulates on the
+# CPU: (B, K, (D, H, W)); V % 8 in {0, 3, 4, 7}, V below one block's share
+LOSS_SHAPES = [(1, 14, (4, 8, 8)), (3, 2, (3, 3, 3)), (3, 16, (5, 5, 7)), (1, 1, (4, 9, 10)),
+               (1, 2, (3, 4, 11)), (3, 14, (16, 16, 20)), (2, 5, (17, 17, 17))]
+
+
+def _loss_inputs(device, dtype, bsz, k, shape, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn((bsz, k, *shape), generator=g) * 3.0).to(device, dtype)
+    labels = torch.randint(0, k, (bsz, *shape), generator=g, dtype=torch.int32).to(device)
+    coefs = (torch.randn((bsz, k), generator=g).to(device),
+             torch.randn((bsz, k), generator=g).to(device),
+             (torch.rand((bsz,), generator=g) + 0.5).to(device))
+    return logits, labels, coefs
+
+
+@DTYPES
+@pytest.mark.parametrize("bsz,k,shape", LOSS_SHAPES,
+                         ids=[f"B{b}-K{k}-{'x'.join(map(str, s))}" for b, k, s in LOSS_SHAPES])
+def test_loss_kernels_match_plain_at_ragged_shapes(device, dtype, bsz, k, shape):
+    """K7 and K8 on both routes (16-byte words where V % VEC == 0, one voxel
+    at a time elsewhere) against their plain versions, with
+    ``kernel_check``'s tolerances; a logits tensor that starts off 16 bytes
+    takes the voxel route and gives the same results."""
+    logits, labels, coefs = _loss_inputs(device, dtype, bsz, k, shape)
+    loss_of.reset_launches()
+    got, want = loss_of.dice_ce_sums(logits, labels), loss_of.dice_ce_sums_plain(logits, labels)
+    for a, b in zip(got, want):
+        assert kernel_check._rel_err(a, b) <= kernel_check.STATS_TOL
+    dl = loss_of.dice_ce_bwd(logits, labels, *coefs)
+    ref = loss_of.dice_ce_bwd_plain(logits, labels, *coefs)
+    assert dl.dtype == dtype and kernel_check._rel_err(dl, ref) <= kernel_check.OUT_TOL[dtype]
+    assert (loss_of.dice_ce_sums.launches, loss_of.dice_ce_bwd.launches) == (1, 1)
+    shifted = torch.empty(logits.numel() + 1, dtype=dtype, device=device)[1:].view_as(logits)
+    shifted.copy_(logits)
+    assert not loss_of.vector_route(labels[0].numel(), dtype, shifted)
+    for a, b in zip(loss_of.dice_ce_sums(shifted, labels), want):
+        assert kernel_check._rel_err(a, b) <= kernel_check.STATS_TOL
+    dl = loss_of.dice_ce_bwd(shifted, labels, *coefs)
+    assert kernel_check._rel_err(dl, ref) <= kernel_check.OUT_TOL[dtype]
+
+
+@DTYPES
+def test_loss_sums_are_bitwise_reproducible(device, dtype):
+    """Two K7 calls on the same inputs give the same bits: each block writes
+    its partial sums and the finish adds them in block order (no atomics)."""
+    logits, labels, _ = _loss_inputs(device, dtype, 2, 14, (32, 48, 48))
+    first = [t.clone() for t in loss_of.dice_ce_sums(logits, labels)]
+    second = loss_of.dice_ce_sums(logits, labels)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 TC_VOLUME = (9, 17, 18)  # ragged against the tensor-core kernels' 2x8x16 voxel tile
@@ -612,6 +668,12 @@ def test_wrapper_raises_instead_of_falling_back(device):
         loss_of.dice_ce_sums(logits, labels.long())
     with pytest.raises(ValueError, match="contiguous"):
         loss_of.dice_ce_sums(logits.transpose(2, 3), labels)
+    with pytest.raises(ValueError, match="dtype"):
+        loss_of.dice_ce_sums(logits.half(), labels)
+    with pytest.raises(ValueError, match="at most 16 classes"):
+        loss_of.dice_ce_bwd(torch.randn(1, 17, 8, 8, 8, device=device), labels,
+                            *(torch.zeros(1, 17, device=device),) * 2,
+                            torch.ones(1, device=device))
     # K4: the accumulator's dtype, layout and extent are checked, never patched around
     z = torch.randn(2, 16, 8, 8, 8, device=device)
     aff = [torch.ones(2, 16, device=device)] * 4

@@ -55,6 +55,11 @@ from medseg_torch.tools import profile_serving as ps
     ("void medseg::(anonymous namespace)::dice_ce_sums_kernel<__nv_bfloat16>(...)",
      "K7 dice_ce_sums"),
     ("void medseg::(anonymous namespace)::dice_ce_bwd_kernel<float>(...)", "K8 dice_ce_bwd"),
+    ("void medseg::(anonymous namespace)::dice_ce_sums_kernel<__nv_bfloat16, 14>"
+     "(__nv_bfloat16 const*, int const*, float*, int, long long, int)", "K7 dice_ce_sums"),
+    ("medseg::(anonymous namespace)::dice_ce_sums_finish_kernel(float const*, float*, int, int, "
+     "int)", "K7 dice_ce_sums"),
+    ("void medseg::(anonymous namespace)::dice_ce_bwd_kernel<float, 0>(...)", "K8 dice_ce_bwd"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
     ("void at::native::reduce_kernel<512, 1, ...>", "reduction"),
     ("pytorch_flash::flash_fwd_kernel<...>", "SDPA attention"),
