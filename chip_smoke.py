@@ -13,8 +13,9 @@ which takes the flat walk), the serving CLI end to end (NIfTI to NIfTI), and
 training, the supervised step of UNETR-B/16 (BASELINE config 5: batch 4 of
 96^3 crops, bf16, remat, DiceCE, AdamW lr 1e-4, weight decay 1e-5), and
 ranking pretraining, both stages through the step and the pretraining CLI,
-with the flat per-conv route (K9) at feature size 32. Phases, each raising
-on failure:
+with the flat per-conv route (K9) at feature size 32, and the segmentation
+CLI (k-fold fine-tuning, best-Dice checkpoints, the final evaluation) on CT
+and on BraTS. Phases, each raising on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; TF32 off
    for every fp32 reference;
@@ -71,7 +72,26 @@ on failure:
     gradients against the fp32 twin, ms/step;
 13. pretrain-cli: ``medseg_torch.cli.pretraining`` on four synthetic CT
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
-    both stages' checkpoints and loss-vs-time artifacts, steps/s.
+    both stages' checkpoints and loss-vs-time artifacts, steps/s;
+14. seg-cli: ``medseg_torch.cli.segmentation`` on a synthetic abdomenCT
+    directory (four 128x128x96 CT volumes at 1.5x1.5x2 mm, 14 classes, one
+    box-shaped organ per class): ``train`` (one fold of two, 4 steps of one
+    volume x 4 crops of 96^3, bf16, device augmentation, a validation every 2
+    steps, "latest" every 2), then ``eval``, which must reproduce the final
+    Dice, precision, recall and Hausdorff to 1e-5; checkpoints, series and
+    figures (or their .npy) on disk; K1, K6, K7 and K8 in the steps, K2, K5
+    and K4 on the tensor cores in the final evaluation (z-row walk); train
+    steps/s after the first, seconds per validation volume, the final
+    evaluation's seconds and Hausdorff's share;
+15. mri-train-kernel: the BraTS step's C_in = 4 kernels (K1 4->16 and K6 at
+    C = 4 @4x128^3, CUDA cores) against their plain versions, timed;
+16. seg-cli-mri: the same CLI on a synthetic Task01_BrainTumour directory
+    (four 4-channel 160x160x128 volumes, labels 0-3): 2 steps of 4 crops of
+    128^3, bf16, sigmoid DiceCE (no K7 or K8), K1 and K6 on their CUDA-core
+    routes in the steps, the validation's out head (K4 on the z-row walk or
+    K3 on the flat walk, as ``zrow_supported`` picks); step ms and peak
+    memory. Phases 14-16 add about 1.5 minutes to the run (89 s on an H100:
+    69, 8 and 12).
 
 The line before the last is the JSON kernel table (K1-K6 and K9 with the
 launches of their tensor-core route beside all their launches, the
@@ -170,6 +190,10 @@ PRETRAIN_TIMED_STEPS = 5
 RECON_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", K1_TC, K6_TC)
 FLAT_LAUNCHES_PER_STEP = 2  # decoder3.conv1's forward and its recompute under remat
 CLI_PRETRAIN_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: ~192^3 after respacing
+SEG_CT_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: 192^3 after respacing (z-row)
+SEG_MRI_VOLUME = (160, 160, 128)  # four MRI channels at 1 mm
+SEG_METRICS = ("dice", "precision", "recall", "hausdorff")
+SEG_EVAL_DICE_TOL = 1e-5  # the final Dice of eval mode against train mode's
 
 
 def log(msg: str) -> None:
@@ -882,9 +906,312 @@ def phase_pretrain_cli(device, card: str) -> dict:
     return launches
 
 
+class SegCliProbe:
+    """Wrappers around the segmentation CLI's train step, ``Validator.__call__``
+    and ``predict_mask``, and the Hausdorff metric, for one CLI run: each
+    step's seconds (synchronized), peak memory and kernel launches; each
+    validation's seconds, volumes, walks, launches and Hausdorff seconds."""
+
+    def __init__(self, seg) -> None:
+        from medseg_torch.engine import evaluate
+        from medseg_torch.ops import metrics
+
+        self.seg, self.evaluate, self.metrics = seg, evaluate, metrics
+        self.steps: list[dict] = []
+        self.validations: list[dict] = []
+        self.predictions: list[tuple] = []  # (image shape, the walk, seconds)
+
+    def __enter__(self):
+        from medseg_torch.ops.sliding_window import zrow_supported
+
+        seg, Validator, metrics = self.seg, self.evaluate.Validator, self.metrics
+        self._saved = (seg.make_train_step, Validator.__call__, Validator.predict_mask,
+                       metrics.hausdorff_distance)
+        make_step, call, predict, hausdorff = self._saved
+        probe = self
+
+        def make_train_step(model, **kw):
+            step = make_step(model, **kw)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = all_launches()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                probe.steps.append({
+                    "seconds": time.perf_counter() - t0,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": diff_launches(all_launches(), before),
+                })
+                return out
+            return timed
+
+        def validator_call(self, volumes, *, all_metrics=False):
+            record = {"all_metrics": all_metrics, "volumes": 0, "hausdorff_seconds": 0.0}
+            probe.validations.append(record)
+
+            def counted():
+                for volume in volumes:
+                    record["volumes"] += 1
+                    yield volume
+
+            torch.cuda.synchronize()
+            before = all_launches()
+            t0 = time.perf_counter()
+            result = call(self, counted(), all_metrics=all_metrics)
+            torch.cuda.synchronize()
+            record["seconds"] = time.perf_counter() - t0
+            record["launches"] = diff_launches(all_launches(), before)
+            return result
+
+        def predict_mask(self, image, spec=None):
+            shape = tuple(int(v) for v in image.shape[-4:-1])
+            walk = "z-row" if zrow_supported(shape, spec or self.spec) else "flat"
+            t0 = time.perf_counter()
+            mask = predict(self, image, spec)
+            torch.cuda.synchronize()
+            probe.predictions.append((shape, walk, time.perf_counter() - t0))
+            return mask
+
+        def timed_hausdorff(*args, **kw):
+            t0 = time.perf_counter()
+            value = hausdorff(*args, **kw)
+            probe.validations[-1]["hausdorff_seconds"] += time.perf_counter() - t0
+            return value
+
+        seg.make_train_step = make_train_step
+        Validator.__call__, Validator.predict_mask = validator_call, predict_mask
+        metrics.hausdorff_distance = timed_hausdorff
+        return self
+
+    def __exit__(self, *exc) -> None:
+        (self.seg.make_train_step, self.evaluate.Validator.__call__,
+         self.evaluate.Validator.predict_mask, self.metrics.hausdorff_distance) = self._saved
+
+    def step_launches(self) -> dict:
+        return sum_launches(step["launches"] for step in self.steps)
+
+
+def diff_launches(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in after}
+
+
+def sum_launches(counts) -> dict:
+    total: dict = {}
+    for c in counts:
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def write_ct_task(root: str, rng: np.random.Generator, n: int) -> None:
+    """``n`` CT volumes of SEG_CT_VOLUME voxels at 1.5 x 1.5 x 2 mm: soft
+    tissue (-100 HU) with one box-shaped organ of each of the 13 foreground
+    classes (40 + 8k HU), at seeded sizes and places in a 4 x 4 grid of
+    columns, so that every class has a surface."""
+    from medseg_torch.data.nifti import write_nifti
+
+    affine = np.diag([1.5, 1.5, 2.0, 1.0])
+    x, y, z = SEG_CT_VOLUME
+    os.makedirs(os.path.join(root, "imagesTr"))
+    os.makedirs(os.path.join(root, "labelsTr"))
+    entries = []
+    for i in range(n):
+        image = rng.normal(-100.0, 30.0, size=SEG_CT_VOLUME).astype(np.float32)
+        label = np.zeros(SEG_CT_VOLUME, np.float32)
+        for k in range(1, N_CLASSES):
+            cx, cy = (k - 1) % 4 * (x // 4), (k - 1) // 4 * (y // 4)
+            sx, sy, sz = rng.integers(10, x // 4 - 4), rng.integers(10, y // 4 - 4), rng.integers(16, z // 2)
+            ox, oy, oz = cx + rng.integers(2, x // 4 - sx), cy + rng.integers(2, y // 4 - sy), rng.integers(4, z - sz - 4)
+            box = (slice(ox, ox + sx), slice(oy, oy + sy), slice(oz, oz + sz))
+            label[box] = k
+            image[box] = rng.normal(40.0 + 8 * k, 20.0, size=(sx, sy, sz))
+        write_nifti(os.path.join(root, "imagesTr", f"ct{i}.nii"), image, affine)
+        write_nifti(os.path.join(root, "labelsTr", f"ct{i}.nii"), label, affine)
+        entries.append({"image": f"imagesTr/ct{i}.nii", "label": f"labelsTr/ct{i}.nii"})
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"training": entries}, f)
+
+
+def write_brats_task(root: str, rng: np.random.Generator, n: int) -> None:
+    """``n`` four-channel MRI volumes of SEG_MRI_VOLUME voxels at 1 mm: noise
+    with a seeded tumour of nested spheres (edema 1, non-enhancing core 2,
+    enhancing core 3) that each channel sees brighter."""
+    from medseg_torch.data.nifti import write_nifti
+
+    os.makedirs(os.path.join(root, "imagesTr"))
+    os.makedirs(os.path.join(root, "labelsTr"))
+    grid = np.stack(np.meshgrid(*map(np.arange, SEG_MRI_VOLUME), indexing="ij"), -1)
+    entries = []
+    for i in range(n):
+        centre = rng.integers(np.array(SEG_MRI_VOLUME) // 4, 3 * np.array(SEG_MRI_VOLUME) // 4)
+        r = np.sqrt(((grid - centre) ** 2).sum(-1))
+        label = np.zeros(SEG_MRI_VOLUME, np.float32)
+        for k, radius in ((1, rng.uniform(22, 32)), (2, rng.uniform(10, 16)), (3, rng.uniform(4, 8))):
+            label[r < radius] = k
+        image = rng.normal(0.0, 1.0, size=SEG_MRI_VOLUME + (4,)).astype(np.float32)
+        image += (label[..., None] * np.array([0.5, 1.0, 0.8, 1.2], np.float32))
+        write_nifti(os.path.join(root, "imagesTr", f"mri{i}.nii"), image)
+        write_nifti(os.path.join(root, "labelsTr", f"mri{i}.nii"), label)
+        entries.append({"image": f"imagesTr/mri{i}.nii", "label": f"labelsTr/mri{i}.nii"})
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"training": entries}, f)
+
+
+def seg_cli_files(out_dir: str, checkpoints: tuple, figures: tuple) -> None:
+    """The CLI's checkpoints, metric series and figures are on disk."""
+    paths = [os.path.join(out_dir, "checkpoints", name, f) for name in checkpoints
+             for f in ("model.pt", "train.pt")]
+    paths += [os.path.join(out_dir, "checkpoints", "meta.json")]
+    paths += [os.path.join(out_dir, f"lr_0.0001_{s}.npy") for s in ("loss", "dice")]
+    paths += [os.path.join(out_dir, f"final_{m}_per_class.npy") for m in SEG_METRICS]
+    paths += [os.path.join(out_dir, f) for f in figures]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise RuntimeError(f"segmentation CLI did not write {missing}")
+
+
+def seg_cli_figures(label: str) -> tuple:
+    """The curves and overlays, or where matplotlib is not installed, the
+    overlays' .npy (the curves are then their loss and Dice series)."""
+    from medseg_torch.cli import segmentation
+
+    if segmentation.have_matplotlib():
+        return ("curves.png", "overlays.pdf")
+    log(f"[{label}] matplotlib is not installed on this machine: the CLI leaves the curves to "
+        "their .npy series and writes the overlays as overlays.npy")
+    return ("overlays.npy",)
+
+
+def check_seg_metrics(result: dict, out_dir: str, label: str) -> None:
+    """Finite mean Dice, precision and recall; per class a finite Dice and
+    recall (every class is in every label), a finite or NaN precision (NaN
+    where the class was never predicted) and Hausdorff (NaN where either mask
+    is empty)."""
+    per = {m: np.load(os.path.join(out_dir, f"final_{m}_per_class.npy")) for m in SEG_METRICS}
+    bad = [m for m in ("dice", "precision", "recall") if not np.isfinite(result[m])]
+    bad += [m for m in ("dice", "recall") if not np.isfinite(per[m]).all()]
+    bad += [m for m in ("precision", "hausdorff") if np.isinf(per[m]).any()]
+    if bad:
+        raise RuntimeError(f"{label}: metrics {bad} not as the contract allows: {result}, {per}")
+
+
+def phase_seg_cli(device, card: str) -> dict:
+    """The segmentation CLI end to end on a synthetic abdomenCT directory of
+    four CT volumes with 14 classes: ``train`` (one fold of two, 4 steps of
+    one volume x 4 crops of 96^3, bf16, device augmentation, a validation
+    every 2 steps and "latest" every 2), then ``eval`` of the best
+    checkpoint, which must reproduce the final metrics."""
+    from medseg_torch.cli import segmentation
+
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ct_task(os.path.join(tmp, "data", "abdomenCT"), rng, 4)
+        argv = [os.path.join(tmp, "data"), "abdomenCT", os.path.join(tmp, "out"),
+                str(N_CLASSES), "", "train", "1e6", "1e-4", "--bf16", "--folds", "2",
+                "--max-folds", "1", "--max-iterations", "4", "--eval-num", "2",
+                "--save-latest-every", "2", "--device-augment", "--no-progress"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with SegCliProbe(segmentation) as train:
+            result = segmentation.main(argv)[0]
+        train_seconds = time.perf_counter() - t0
+        argv[5] = "eval"
+        with SegCliProbe(segmentation) as evaluation:
+            again = segmentation.main(argv)[0]
+        torch.cuda.synchronize()
+        launches = all_launches()
+        out_dir = os.path.join(tmp, "out", "abdomenCT_0")
+        figures = seg_cli_figures("seg-cli")
+        seg_cli_files(out_dir, ("best", "latest"), figures)
+        check_seg_metrics(result, out_dir, "seg-cli")
+    # eval mode must reproduce the final Dice to 1e-5; the other metrics'
+    # differences are printed: K1/K2/K5 add their statistics in a varying
+    # order, so the fused forward is not bitwise reproducible (ROADMAP.md
+    # Queue 3, F-port2) and near-tied voxels of this barely trained model
+    # can flip between two evaluations
+    diffs = {m: abs(again[m] - result[m]) for m in SEG_METRICS}
+    if not diffs["dice"] <= SEG_EVAL_DICE_TOL:
+        raise RuntimeError(f"seg-cli: eval mode {again} does not reproduce the final Dice "
+                           f"{result} to {SEG_EVAL_DICE_TOL}")
+    steps = [s["seconds"] for s in train.steps]
+    dice_only = [v for v in train.validations if not v["all_metrics"]]
+    final = [v for v in train.validations if v["all_metrics"]][0]
+    per_volume = sum(v["seconds"] for v in dice_only) / sum(v["volumes"] for v in dice_only)
+    infer = [sec for _, walk, sec in train.predictions]
+    walks = sorted({(shape, walk) for shape, walk, _ in train.predictions})
+    log(f"[seg-cli] medseg_torch.cli.segmentation train --bf16 --device-augment, UNETR-B/16 "
+        f"abdomenCT 14 classes, 4 CT volumes {'x'.join(map(str, SEG_CT_VOLUME))} at 1.5x1.5x2 mm "
+        f"(one fold: 2 train / 2 val): {len(steps)} steps, {(len(steps) - 1) / sum(steps[1:]):.3f} "
+        f"train steps/s after the first (step s {['%.3f' % v for v in steps]}, peak "
+        f"{max(s['peak_gib'] for s in train.steps):.1f} GiB); validation {per_volume:.3f} s per "
+        f"volume ({len(dice_only)} Dice validations, sliding-window inference "
+        f"{['%.3f' % v for v in infer]} s per call; walks {walks}); final evaluation "
+        f"{final['seconds']:.3f} s for {final['volumes']} volumes, Hausdorff "
+        f"{final['hausdorff_seconds']:.3f} s ({100 * final['hausdorff_seconds'] / final['seconds']:.1f}%); "
+        f"CLI train run {train_seconds:.1f} s end to end [{card}]")
+    log(f"[seg-cli] final: dice {result['dice']:.5f} precision {result['precision']:.5f} recall "
+        f"{result['recall']:.5f} hausdorff {result['hausdorff']:.3f}; eval mode's differences "
+        f"{diffs} (Dice bound {SEG_EVAL_DICE_TOL}); figures {figures}; "
+        f"eval-mode final evaluation {evaluation.validations[0]['seconds']:.3f} s; launches "
+        f"{launches}")
+    require_launched(launches, TRAIN_KERNELS + ZROW_KERNELS, "seg-cli")
+    require_launched(train.step_launches(), TRAIN_KERNELS, "seg-cli train step")
+    require_tc_only(final["launches"], "the seg-cli final evaluation", ZROW_TC_ONLY)
+    if ("z-row" not in {walk for _, walk in walks}):
+        raise RuntimeError(f"seg-cli: no validation volume took the z-row walk: {walks}")
+    return launches
+
+
+def phase_seg_cli_mri(device, card: str) -> dict:
+    """The segmentation CLI on a synthetic Task01_BrainTumour directory (four
+    4-channel volumes, labels 0-3, n_classes 4): one fold, 2 steps of one
+    volume x 4 crops of 128^3, bf16, sigmoid DiceCE, a validation after
+    step 2, the final evaluation."""
+    from medseg_torch.cli import segmentation
+
+    rng = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_brats_task(os.path.join(tmp, "data", "Task01_BrainTumour"), rng, 4)
+        argv = [os.path.join(tmp, "data"), "Task01_BrainTumour", os.path.join(tmp, "out"), "4", "",
+                "train", "1e6", "1e-4", "--bf16", "--folds", "2", "--max-folds", "1",
+                "--max-iterations", "2", "--eval-num", "2", "--no-progress"]
+        reset_launches()
+        with SegCliProbe(segmentation) as probe:
+            result = segmentation.main(argv)[0]
+        torch.cuda.synchronize()
+        launches = all_launches()
+        out_dir = os.path.join(tmp, "out", "Task01_BrainTumour_0")
+        seg_cli_files(out_dir, ("best",), seg_cli_figures("seg-cli-mri"))
+        check_seg_metrics(result, out_dir, "seg-cli-mri")
+    step = probe.step_launches()
+    validation = sum_launches(v["launches"] for v in probe.validations)
+    walks = {walk for shape, walk, _ in probe.predictions[: sum(v["volumes"] for v in probe.validations)]}
+    head = "outhead_row_of" if walks == {"z-row"} else "outhead_of"
+    log(f"[seg-cli-mri] medseg_torch.cli.segmentation train --bf16, UNETR-B/16 Task01_BrainTumour "
+        f"(4 channels, sigmoid DiceCE), 4 volumes {'x'.join(map(str, SEG_MRI_VOLUME))}: step ms "
+        f"{['%.2f' % (1e3 * s['seconds']) for s in probe.steps]} (4 crops of 128^3), peak "
+        f"{max(s['peak_gib'] for s in probe.steps):.1f} GiB [{card}]; validation walks {walks} "
+        f"(out head {head}); final dice {result['dice']:.5f} precision {result['precision']:.5f} "
+        f"recall {result['recall']:.5f} hausdorff {result['hausdorff']:.3f}; step launches {step}; "
+        f"launches {launches}")
+    if len(walks) != 1:
+        raise RuntimeError(f"seg-cli-mri: validation walks {walks}")
+    cuda_cores = {name: step[name] - step[f"{name}[tc]"] for name in ("conv3x3x3_of",
+                                                                     "conv3x3x3_wgrad_of")}
+    require_launched(cuda_cores, tuple(cuda_cores), "seg-cli-mri train step's CUDA-core")
+    if step["dice_ce_sums"] or step["dice_ce_bwd"]:
+        raise RuntimeError(f"seg-cli-mri: the sigmoid loss launched K7/K8: {step}")
+    require_launched(validation, (head,), "seg-cli-mri validation")
+    return launches
+
+
 def main() -> int:
     from medseg_torch.kernels import kernel_check
 
+    t_start = time.perf_counter()
     device, card = phase_device()
     phase_build(card)
     table: dict = {}
@@ -910,6 +1237,11 @@ def main() -> int:
     paths.update(phase_pretrain(device, card))
     paths["pretrain-flat"] = phase_pretrain_flat(device, card)
     paths["pretrain-cli"] = phase_pretrain_cli(device, card)
+    torch.cuda.empty_cache()
+    paths["seg-cli"] = phase_seg_cli(device, card)
+    torch.cuda.empty_cache()
+    phase_kernels(device, card, table, kernel_check.mri_training_cases, "mri-train-kernel")
+    paths["seg-cli-mri"] = phase_seg_cli_mri(device, card)
     kernels = []
     for name, (src, tpu, _) in KERNELS.items():
         row = table[name]
@@ -933,6 +1265,7 @@ def main() -> int:
                 "tc_launches_by_path": {path: launches[tc] for path, launches in paths.items()},
             })
         kernels.append(kernel)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

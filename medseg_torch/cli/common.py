@@ -42,6 +42,18 @@ def fold_datalists(
     return folds
 
 
+def make_output_dir(root_dir: str, pretrained: str, dataset_name: str, fold: int) -> str:
+    """``ROOT_DIR[_pretrained_ranking|_pretrained_contrast]/DATASET_NAME_<fold>``
+    (the suffix from the pretrained path's name), created."""
+    if "ranking" in pretrained:
+        root_dir = root_dir + "_pretrained_ranking"
+    elif "contrast" in pretrained:
+        root_dir = root_dir + "_pretrained_contrast"
+    out = os.path.join(root_dir, f"{dataset_name}_{fold}")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
 def subsample_train(train_list: list[dict], train_size: float) -> list[dict]:
     """The label-budget subsample: the first ``train_size`` entries."""
     return train_list[: min(len(train_list), int(train_size))]

@@ -1,8 +1,9 @@
-"""Validation: sliding-window inference + Dice (counterpart of
+"""Validation: sliding-window inference + metrics (counterpart of
 ``medseg/engine/evaluate.py``).
 
 Per volume: blended whole-volume logits, the task's post-transform, Dice
-accumulation; then mean and per-class aggregates. With the fast path (the
+accumulation (with ``all_metrics``, also precision, recall and Hausdorff,
+all on the device); then mean and per-class aggregates. With the fast path (the
 default) the windows go through the fused serving forward
 (``kernels.unetr_of.fast_apply_v3``, blend weight folded into its out head),
 where ``kernels.unetr_of.fast_path_supported`` accepts the window shape on
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from medseg_torch.kernels.unetr_of import fast_apply_v3, fast_path_supported, fused_weights
-from medseg_torch.ops.metrics import DiceAccumulator
+from medseg_torch.ops.metrics import ConfusionAccumulator, DiceAccumulator, HausdorffAccumulator
 from medseg_torch.ops.post import argmax_onehot, sigmoid_threshold, to_onehot
 from medseg_torch.ops.sliding_window import (
     SlidingWindowSpec,
@@ -41,6 +42,12 @@ from medseg_torch.ops.swi_zrow import sliding_window_inference_zrow
 class ValidationResult:
     mean_dice: float
     per_class_dice: np.ndarray
+    mean_precision: float | None = None
+    per_class_precision: np.ndarray | None = None
+    mean_recall: float | None = None
+    per_class_recall: np.ndarray | None = None
+    mean_hausdorff: float | None = None
+    per_class_hausdorff: np.ndarray | None = None
 
 
 class Validator:
@@ -120,15 +127,33 @@ class Validator:
             return to_onehot(label, self.n_classes)
         return label.float()  # BraTS labels already multi-channel
 
-    def __call__(self, volumes: Iterable[dict]) -> ValidationResult:
+    def __call__(self, volumes: Iterable[dict], *, all_metrics: bool = False) -> ValidationResult:
+        """Metrics over ``volumes`` (dicts of a channels-last ``image`` and
+        ``label``, each on the host or on any device): Dice, and with
+        ``all_metrics`` precision, recall and Hausdorff (HD100)."""
         dice = DiceAccumulator()
+        prec = ConfusionAccumulator("precision") if all_metrics else None
+        rec = ConfusionAccumulator("sensitivity") if all_metrics else None
+        hsd = HausdorffAccumulator() if all_metrics else None
         for batch in volumes:
             pred = self.predict_mask(batch["image"])[None]
-            lab = self._post_label(torch.as_tensor(batch["label"], device=self.device))
+            lab = self._post_label(torch.as_tensor(batch["label"]).to(self.device))
             if lab.ndim == 4:
                 lab = lab[None]
             dice(pred, lab)
-        return ValidationResult(
+            if all_metrics:
+                prec(pred, lab)
+                rec(pred, lab)
+                hsd(pred, lab)
+        result = ValidationResult(
             mean_dice=float(dice.aggregate("mean")),
             per_class_dice=dice.aggregate("mean_batch"),
         )
+        if all_metrics:
+            result.mean_precision = float(prec.aggregate("mean"))
+            result.per_class_precision = prec.aggregate("mean_batch")
+            result.mean_recall = float(rec.aggregate("mean"))
+            result.per_class_recall = rec.aggregate("mean_batch")
+            result.mean_hausdorff = float(hsd.aggregate("mean"))
+            result.per_class_hausdorff = hsd.aggregate("mean_batch")
+        return result

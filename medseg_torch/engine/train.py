@@ -19,6 +19,7 @@ import torch
 from medseg_torch.engine.evaluate import Validator
 from medseg_torch.engine.state import TrainState, apply_gradients
 from medseg_torch.kernels.loss_of import dice_ce_fused, fused_loss_supported
+from medseg_torch.ops.augment import augment_batch
 from medseg_torch.ops.losses import dice_ce_loss
 from medseg_torch.ops.sliding_window import SlidingWindowSpec
 
@@ -53,11 +54,13 @@ def make_train_step(
     "label": ...})`` updates ``state`` in place (the model's parameters, the
     optimizer's moments, the step) and returns the loss as a device tensor,
     not synced. Images are (B, C, D, H, W); CT labels are cast to int32 once
-    here."""
-    if device_augment:
-        raise NotImplementedError(
-            "device_augment=True needs ops/augment.py, which is not ported yet"
-        )
+    here.
+
+    ``device_augment=True`` runs the reference's random flip/rot90/intensity
+    chain (``ops/augment.py``) on the batch on the device, inside the step,
+    with per-sample decisions drawn on the host from ``state.generator``;
+    use it with the host augmentations off
+    (``pipelines.train_transforms(..., augment=False)``)."""
     loss_fn = make_loss_fn(task)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, torch.Tensor]:
@@ -66,6 +69,8 @@ def make_train_step(
         device = next(model.parameters()).device
         image = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
         label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
+        if device_augment:
+            image, label = augment_batch(state.generator, image, label)
         if task == "ct":
             label = label.to(torch.int32)
         loss = loss_fn(model, image, label)

@@ -7,7 +7,8 @@ volumes, ``fs`` = feature_size 16, and K5 also at feature size 32's
 accumulators); ``brats_cases`` does the same at the BraTS window
 (128^3, four input channels, 8 padded classes); ``training_cases`` for the
 kernels the training step adds (K6, K1's data gradient, K7 and K8);
-``flat_cases`` for K9, the flat per-conv route of the pretraining path
+``mri_training_cases`` for the BraTS training step's C_in = 4 convs (K1
+and K6 on the CUDA cores); ``flat_cases`` for K9, the flat per-conv route of the pretraining path
 (fp32 output, held to the same output tolerances as K1).
 ``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
 and the plain version, and returns the largest errors, the least time the
@@ -320,6 +321,30 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
     for k, s in ((n_classes, full), (2, full), (n_classes, full + 1)):
         cases += loss_cases(g, device, dtype, batch, k, s)
     return cases
+
+
+def mri_training_cases(device, dtype: torch.dtype, *, batch: int = 4,
+                       full: int = 128) -> list[Case]:
+    """The kernels the BraTS training step (four MRI channels, 128^3 crops,
+    sigmoid DiceCE, so neither K7 nor K8) launches at C_in = 4, on the CUDA
+    cores: enc1.conv1's forward (K1 4->16, no prologue) and its filter
+    gradient (K6 at C = 4)."""
+    g = torch.Generator().manual_seed(5)
+    c_in, c_out = 4, 16
+    x = (torch.randn((batch, c_in, full, full, full), generator=g)).to(device=device, dtype=dtype)
+    cot = torch.randn((batch, c_out, full, full, full), generator=g).to(device=device, dtype=dtype)
+    w = (torch.randn((c_out, c_in, 3, 3, 3), generator=g) * (27 * c_in) ** -0.5).to(
+        device=device, dtype=dtype)
+    lib, lib_cl = _conv_library(x, w)
+    w_shape = (c_out, c_in, 3, 3, 3)
+    shape = f"{c_in}->{c_out} @{batch}x{full}^3"
+    return [
+        Case(f"brats step enc1.conv1 {shape}", conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_plain,
+             (x, w), flops=_conv_flops(x, c_out), library=lib, library_cl=lib_cl),
+        Case(f"wgrad brats enc1.conv1 {shape}", conv_of.conv3x3x3_wgrad_of,
+             conv_of.conv3x3x3_wgrad_of_plain, (x, cot), flops=_conv_flops(x, c_out),
+             library=lambda: torch.nn.grad.conv3d_weight(x, w_shape, cot, padding=1)),
+    ]
 
 
 def loss_cases(g, device, dtype, batch: int, n_classes: int, edge: int) -> list[Case]:

@@ -47,6 +47,7 @@ def test_port_imports_no_jax_flax_or_triton():
         "medseg_torch.ops.ranking", "medseg_torch.kernels.conv_flat", "medseg_torch.engine.pretrain",
         "medseg_torch.data.sampling", "medseg_torch.data.loader", "medseg_torch.utils.artifacts",
         "medseg_torch.cli.pretraining", "medseg_torch.tools.profile_pretrain",
+        "medseg_torch.ops.augment", "medseg_torch.cli.segmentation",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"

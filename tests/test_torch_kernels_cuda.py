@@ -787,3 +787,59 @@ def test_widths_without_kernels_serve_and_train_through_the_library(device, feat
     assert launched == {"conv3x3x3_of": 3 * wgrad_launches, "conv3x3x3_of_cat2": 0,
                         "conv3x3x3_of_combine": 0, "outhead_of": 0, "outhead_row_of": 0,
                         "conv3x3x3_wgrad_of": wgrad_launches}, launched
+
+
+@DTYPES
+def test_mri_training_kernels_match_plain(device, dtype):
+    """The BraTS step's C_in = 4 cases (K1 4->16 and K6 at C = 4, CUDA
+    cores), cut to 16^3."""
+    cases = kernel_check.mri_training_cases(device, dtype, batch=1, full=16)
+    results = [kernel_check.run_case(case, dtype) for case in cases]
+    bad = [r for r in results if not r["ok"]]
+    assert not bad, bad
+
+
+def _scipy_hausdorff(pred, target):
+    """The host version: edges by binary erosion (outside the array is
+    background), scipy's exact distance transform."""
+    from scipy import ndimage
+
+    cross = ndimage.generate_binary_structure(3, 1)
+    edges = [m & ~ndimage.binary_erosion(m, cross, border_value=0) for m in (pred, target)]
+    if not edges[0].any() or not edges[1].any():
+        return float("nan")
+    d_pt = ndimage.distance_transform_edt(~edges[1])[edges[0]]
+    d_tp = ndimage.distance_transform_edt(~edges[0])[edges[1]]
+    return float(max(d_pt.max(), d_tp.max()))
+
+
+def test_device_hausdorff_matches_the_host_version(device):
+    """The exact device search at 160^3: two overlapping blobs (a sphere and
+    a box with scattered voxels), one touching the border."""
+    from medseg_torch.ops.metrics import hausdorff_distance
+
+    g = torch.Generator().manual_seed(0)
+    z, y, x = torch.meshgrid(*(torch.arange(160),) * 3, indexing="ij")
+    sphere = ((z - 70) ** 2 + (y - 80) ** 2 + (x - 90) ** 2) < 45**2
+    box = torch.zeros((160, 160, 160), dtype=torch.bool)
+    box[100:160, 30:120, 40:110] = True
+    box |= torch.rand((160, 160, 160), generator=g) < 1e-4
+    want = _scipy_hausdorff(sphere.numpy(), box.numpy())
+    got = hausdorff_distance(sphere.to(device), box.to(device))
+    assert got == pytest.approx(want, abs=1e-5)
+    assert got == pytest.approx(hausdorff_distance(sphere, box), abs=0)
+
+
+def test_augment_batch_on_the_card_equals_the_cpu_result(device):
+    """The same decisions on the card and on the CPU give the same bits."""
+    from medseg_torch.ops.augment import Decision, apply_decisions
+
+    g = torch.Generator().manual_seed(1)
+    image = torch.randn((4, 1, 24, 24, 20), generator=g)
+    label = torch.randint(0, 14, (4, 1, 24, 24, 20), generator=g)
+    decisions = [Decision(flips=(True, False, True), k=1, shift=0.07),
+                 Decision(k=2), Decision(flips=(False, True, False), k=3, shift=-0.03),
+                 Decision()]
+    want_img, want_lab = apply_decisions(image, label, decisions)
+    got_img, got_lab = apply_decisions(image.to(device), label.to(device), decisions)
+    assert torch.equal(got_img.cpu(), want_img) and torch.equal(got_lab.cpu(), want_lab)
