@@ -78,7 +78,8 @@ and on BraTS. Phases, each raising on failure:
     box-shaped organ per class): ``train`` (one fold of two, 4 steps of one
     volume x 4 crops of 96^3, bf16, device augmentation, a validation every 2
     steps, "latest" every 2), then ``eval``, which must reproduce the final
-    Dice, precision, recall and Hausdorff to 1e-5; checkpoints, series and
+    Dice, precision, recall and Hausdorff exactly (the kernels' statistics
+    are added in a fixed order); checkpoints, series and
     figures (or their .npy) on disk; K1, K6, K7 and K8 in the steps, K2, K5
     and K4 on the tensor cores in the final evaluation (z-row walk); train
     steps/s after the first, seconds per validation volume, the final
@@ -91,7 +92,30 @@ and on BraTS. Phases, each raising on failure:
     routes in the steps, the validation's out head (K4 on the z-row walk or
     K3 on the flat walk, as ``zrow_supported`` picks); step ms and peak
     memory. Phases 14-16 add about 1.5 minutes to the run (89 s on an H100:
-    69, 8 and 12).
+    69, 8 and 12);
+17. determinism: K1, K2 and K5 twice on the same inputs at the serving,
+    BraTS and training shapes, fp32 (CUDA cores) and bf16 (tensor cores),
+    then the fused forward twice on four 96^3 windows: outputs, statistics
+    and logits bitwise equal;
+18. dp: a process group of one rank on NCCL: config 5's step through
+    ``make_train_step(mesh=...)`` (1 warm step, then two timed blocks of 5
+    in turns with the same steps without a mesh from the same weights;
+    parameters bitwise, or within 2 x lr x steps, which is printed), ``Validator(mesh=...)`` on the
+    seg-cli's 192x192x191 volume (the sharded z-row walk) and on a
+    128x128x97 volume (the sharded flat walk, K3) against the unsharded
+    walks, bitwise; K1, K6, K7 and K8 in the steps, K1, K2, K5 and K4 (K3)
+    on the tensor cores in the walks, the collectives counted;
+19. dp-2: two processes on the one card (gloo through the host,
+    ``tools/dryrun_multichip``, each run with a time limit): each rank
+    steps on 2 of the 4 crops of config 5, the global gradient against one
+    process on all 4 and against one process's mean of the same halves
+    (relative L2 within the tool's bounds), the steps timed;
+    the sharded z-row walk at two ranks against one on a 192x192x191 volume
+    (fp32 accumulator; argmax agreement at least 0.9999, both ranks the
+    same bits); then the segmentation CLI on two processes through the
+    ``MEDSEG_*`` variables (``--data-parallel``, one fold, 2 steps, one
+    validation): the same final metrics on both ranks, rank 0 alone saving
+    checkpoints, one log per rank.
 
 The line before the last is the JSON kernel table (K1-K6 and K9 with the
 launches of their tensor-core route beside all their launches, the
@@ -193,7 +217,12 @@ CLI_PRETRAIN_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: ~192^3 af
 SEG_CT_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: 192^3 after respacing (z-row)
 SEG_MRI_VOLUME = (160, 160, 128)  # four MRI channels at 1 mm
 SEG_METRICS = ("dice", "precision", "recall", "hausdorff")
-SEG_EVAL_DICE_TOL = 1e-5  # the final Dice of eval mode against train mode's
+# K1, K2 and K5 twice on the same inputs (phase 17): both routes
+DETERMINISM_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+DP_STEPS = 5  # timed data-parallel steps after a warm one (phase 18)
+DP_LR = 1e-4
+FLAT_SHARDED_VOLUME = (128, 128, 97)  # an odd grid: the sharded flat walk (K3)
+DP2_TIMEOUT = 420  # seconds for each two-process run of phase 19
 
 
 def log(msg: str) -> None:
@@ -388,15 +417,20 @@ def phase_forward32(device, card: str) -> dict:
     return launches
 
 
-def timed_volume(validator, volume) -> tuple[torch.Tensor, float, dict]:
-    """One warm run, then one timed run whose kernel launches are counted."""
+def warm_then_timed(validator, volume, before_timed=lambda: None) -> tuple[torch.Tensor, float]:
+    """One warm run, then one timed run (``before_timed`` runs between)."""
     validator.infer_volume(volume)  # warm
     torch.cuda.synchronize()
-    reset_launches()
+    before_timed()
     t0 = time.perf_counter()
     out = validator.infer_volume(volume)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def timed_volume(validator, volume) -> tuple[torch.Tensor, float, dict]:
+    """One warm run, then one timed run whose kernel launches are counted."""
+    out, seconds = warm_then_timed(validator, volume, reset_launches)
     return out, seconds, all_launches()
 
 
@@ -1127,15 +1161,15 @@ def phase_seg_cli(device, card: str) -> dict:
         figures = seg_cli_figures("seg-cli")
         seg_cli_files(out_dir, ("best", "latest"), figures)
         check_seg_metrics(result, out_dir, "seg-cli")
-    # eval mode must reproduce the final Dice to 1e-5; the other metrics'
-    # differences are printed: K1/K2/K5 add their statistics in a varying
-    # order, so the fused forward is not bitwise reproducible (ROADMAP.md
-    # Queue 3, F-port2) and near-tied voxels of this barely trained model
-    # can flip between two evaluations
-    diffs = {m: abs(again[m] - result[m]) for m in SEG_METRICS}
-    if not diffs["dice"] <= SEG_EVAL_DICE_TOL:
-        raise RuntimeError(f"seg-cli: eval mode {again} does not reproduce the final Dice "
-                           f"{result} to {SEG_EVAL_DICE_TOL}")
+    # eval mode must reproduce all four final metrics exactly: the forward is
+    # bitwise reproducible (K1, K2 and K5 add their statistics in a fixed
+    # order) and eval restores the same best checkpoint; the differences are
+    # printed
+    diffs = {m: 0.0 if np.isnan(again[m]) and np.isnan(result[m]) else abs(again[m] - result[m])
+             for m in SEG_METRICS}
+    if any(diffs.values()):
+        raise RuntimeError(f"seg-cli: eval mode {again} does not reproduce the final metrics "
+                           f"{result} exactly: differences {diffs}")
     steps = [s["seconds"] for s in train.steps]
     dice_only = [v for v in train.validations if not v["all_metrics"]]
     final = [v for v in train.validations if v["all_metrics"]][0]
@@ -1154,7 +1188,7 @@ def phase_seg_cli(device, card: str) -> dict:
         f"CLI train run {train_seconds:.1f} s end to end [{card}]")
     log(f"[seg-cli] final: dice {result['dice']:.5f} precision {result['precision']:.5f} recall "
         f"{result['recall']:.5f} hausdorff {result['hausdorff']:.3f}; eval mode's differences "
-        f"{diffs} (Dice bound {SEG_EVAL_DICE_TOL}); figures {figures}; "
+        f"{diffs} (expected 0 each); figures {figures}; "
         f"eval-mode final evaluation {evaluation.validations[0]['seconds']:.3f} s; launches "
         f"{launches}")
     require_launched(launches, TRAIN_KERNELS + ZROW_KERNELS, "seg-cli")
@@ -1208,6 +1242,189 @@ def phase_seg_cli_mri(device, card: str) -> dict:
     return launches
 
 
+def phase_determinism(device, card: str) -> dict:
+    """K1, K2 and K5 twice on both routes at the path's shapes, and the fused
+    forward twice on four 96^3 windows: every output, statistic and logit
+    the same bits (``tools/probe_determinism.py``'s checks)."""
+    from medseg_torch.kernels import kernel_check
+    from medseg_torch.models.unetr import init_weights, unetr_b16
+    from medseg_torch.tools import probe_determinism
+
+    reset_launches()
+    failed = probe_determinism.kernels(
+        device, card, names=DETERMINISM_KERNELS, calls=2, label="determinism",
+        cases_fns=(kernel_check.kernel_cases, kernel_check.brats_cases,
+                   kernel_check.training_cases, kernel_check.mri_training_cases))
+    g = torch.Generator().manual_seed(0)
+    model = init_weights(unetr_b16(1, N_CLASSES, CROP, dtype=torch.bfloat16), g).to(device).eval()
+    x = torch.randn((4, 1, CROP, CROP, CROP), generator=g).to(device)
+    if not probe_determinism.fused_forward(model, x, card, "determinism"):
+        failed.append("fused forward")
+    torch.cuda.synchronize()
+    launches = all_launches()
+    log(f"[determinism] {'every case bitwise' if not failed else failed}; launches {launches}")
+    routes = {name: (launches[name], launches[f"{name}[tc]"]) for name in DETERMINISM_KERNELS}
+    if not all(n > tc > 0 for n, tc in routes.values()):
+        raise RuntimeError(f"determinism: (launches, tensor-core launches) {routes}: each of K1, "
+                           "K2 and K5 must run on both routes")
+    if failed:
+        raise RuntimeError(f"not bitwise reproducible: {failed}")
+    return launches
+
+
+def phase_dp(device, card: str) -> dict:
+    """The slice's paths on a real NCCL process group of one rank: config
+    5's data-parallel step against the step without a mesh, and the sharded
+    z-row and flat walks against the unsharded ones."""
+    import torch.distributed as dist
+
+    from medseg_torch.engine.evaluate import Validator
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.engine.train import make_train_step
+    from medseg_torch.models.unetr import unetr_b16
+    from medseg_torch.ops.sliding_window import SlidingWindowSpec, zrow_supported
+    from medseg_torch.parallel import make_mesh
+    from medseg_torch.tools.dryrun_multichip import Launches
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(device)
+        path = Launches()  # the data-parallel path's launches, not its references'
+        states = [create_train_state(unetr_b16(1, N_CLASSES, CROP, dtype=torch.bfloat16,
+                                               remat=True),
+                                     generator=torch.Generator().manual_seed(0),
+                                     learning_rate=DP_LR, weight_decay=1e-5, device=device)
+                  for _ in range(2)]
+        g = torch.Generator().manual_seed(1)
+        batch = {"image": torch.randn((TRAIN_BATCH, 1, CROP, CROP, CROP), generator=g).to(device),
+                 "label": torch.randint(0, N_CLASSES, (TRAIN_BATCH, CROP, CROP, CROP), generator=g,
+                                        dtype=torch.int32).to(device)}
+        steps = {"mesh": make_train_step(states[0].model, task="ct", mesh=mesh),
+                 "no mesh": make_train_step(states[1].model, task="ct")}
+        ms = {label: [] for label in steps}
+        losses = {label: [] for label in steps}
+        # a warm step each, then timed blocks in turns (host-bound steps vary)
+        for block, label in enumerate(("mesh", "no mesh", "no mesh", "mesh", "mesh", "no mesh")):
+            i = 0 if label == "mesh" else 1
+            with path if label == "mesh" else Launches():
+                if block < 2:
+                    states[i], first = steps[label](states[i], batch)  # warm
+                    losses[label].append(first)
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_STEPS):
+                    states[i], loss = steps[label](states[i], batch)
+                    losses[label].append(loss)
+                torch.cuda.synchronize()
+            ms[label].append(1e3 * (time.perf_counter() - t0) / DP_STEPS)
+        losses = {label: ["%.6f" % v.item() for v in out] for label, out in losses.items()}
+        pairs = list(zip(states[0].model.parameters(), states[1].model.parameters()))
+        bitwise = all(torch.equal(p, q) for p, q in pairs)
+        diff = max((p - q).abs().max().item() for p, q in pairs)
+        bound = 2 * DP_LR * (2 * DP_STEPS + 1)
+        log(f"[dp] config 5 step through make_train_step(mesh=NCCL world 1): "
+            f"{['%.2f' % v for v in ms['mesh']]} ms/step vs {['%.2f' % v for v in ms['no mesh']]} "
+            f"without a mesh (blocks of {DP_STEPS} in turns) [{card}]; parameters after "
+            f"{2 * DP_STEPS + 1} steps {'bitwise equal' if bitwise else 'differ'} "
+            f"(largest |diff| {diff:.3e}, bound {bound:.1e}); losses mesh {losses['mesh']} vs "
+            f"{losses['no mesh']}; step launches {path.counts}")
+        if not (bitwise or diff <= bound):
+            raise RuntimeError(f"dp: the data-parallel step's parameters differ by {diff}")
+        require_launched(path.counts, TRAIN_KERNELS, "dp step")
+        model = states[0].model.eval()
+        del states, batch, pairs
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(8)
+        spec = SlidingWindowSpec(roi=(CROP,) * 3, overlap=0.25, sw_batch=4, bucket_multiple=32)
+        walks = {}
+        for shape, walk in (((192, 192, 191), "z-row"), (FLAT_SHARDED_VOLUME, "flat")):
+            if zrow_supported(shape, spec) != (walk == "z-row"):
+                raise RuntimeError(f"{shape} should take the {walk} walk")
+            volume = rng.standard_normal(shape + (1,), dtype=np.float32)
+            sharded = Validator(model, N_CLASSES, "ct", spec, device=device, mesh=mesh)
+            single = Validator(model, N_CLASSES, "ct", spec, device=device)
+            walks[walk] = Launches()
+            with walks[walk], path:
+                got, seconds = warm_then_timed(sharded, volume)
+            want, single_seconds = warm_then_timed(single, volume)
+            check_volume(got, shape + (N_CLASSES,), f"dp {walk}")
+            same = torch.equal(got, want)
+            log(f"[dp] Validator(mesh=NCCL world 1) {'x'.join(map(str, shape))}, sharded {walk} "
+                f"walk: {seconds:.3f} s/volume vs {single_seconds:.3f} unsharded [{card}]; "
+                f"{'bitwise equal' if same else 'DIFFERENT'} (largest |diff| "
+                f"{(got - want).abs().max().item():.3e}); launches {walks[walk].counts}")
+            if not same:
+                raise RuntimeError(f"dp: the sharded {walk} walk at one rank is not the unsharded")
+        require_launched(walks["z-row"].counts, ZROW_KERNELS, "dp sharded z-row walk")
+        require_tc_only(walks["z-row"].counts, "the dp sharded z-row walk", ZROW_TC_ONLY)
+        require_launched(walks["flat"].counts, FLAT_KERNELS, "dp sharded flat walk")
+        require_tc_only(walks["flat"].counts, "the dp sharded flat walk", FLAT_TC_ONLY)
+        log(f"[dp] collectives issued to the NCCL group: {mesh.collectives}")
+    finally:
+        dist.destroy_process_group()
+    return path.counts
+
+
+def phase_dp2(device, card: str) -> dict:
+    """Two processes on the one card (gloo): the data-parallel gradient and
+    the sharded walk against one process, then the segmentation CLI at two
+    ranks."""
+    from medseg_torch.tools import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports, bad = dryrun_multichip.launch(2, "cuda", "full", steps=3, timeout=DP2_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    r0 = reports[0]
+    log(f"[dp-2] UNETR-B/16 bf16 remat, 2 ranks x 2 crops of {CROP}^3 on one card "
+        f"({', '.join(r['backend'] for r in reports)}): global gradient vs one process on 4 crops "
+        f"rel L2 {r0['grad_rel_l2']:.3e} (bound {dryrun_multichip.GRAD_REL_L2_BOUND['full']}), vs "
+        f"the same halves in one process {r0['grad_halves_rel_l2']:.3e} (bound "
+        f"{dryrun_multichip.HALVES_REL_L2_BOUND}); "
+        f"step {r0['step_ms']:.1f} ms (rank 1 {reports[1]['step_ms']:.1f}) [{card}]; sharded "
+        f"z-row walk 192x192x191 at 2 ranks {r0['walk_seconds']:.3f} s/volume vs "
+        f"{r0['walk_seconds_single_process']:.3f} at one (fp32 accumulator): largest |diff| "
+        f"{r0['walk_max_abs_diff']:.3e} of {r0['walk_largest_logit']:.3f}, argmax agreement "
+        f"{r0['argmax_agreement']:.7f}, ranks identical {all(r['ranks_identical'] for r in reports)}"
+        f", counts exact {r0['counts_equal']}; collectives {[r['collectives'] for r in reports]}; "
+        f"{seconds:.1f} s for the run")
+    if bad:
+        raise RuntimeError(f"dp-2: {bad}")
+    launches = sum_launches(r["launches"] for r in reports)
+
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ct_task(os.path.join(tmp, "data", "abdomenCT"), rng, 4)
+        argv = [os.path.join(tmp, "data"), "abdomenCT", os.path.join(tmp, "out"),
+                str(N_CLASSES), "", "train", "1e6", "1e-4", "--bf16", "--folds", "2",
+                "--max-folds", "1", "--max-iterations", "2", "--eval-num", "2",
+                "--device-augment", "--data-parallel", "--no-progress"]
+        t0 = time.perf_counter()
+        cli, bad = dryrun_multichip.launch(2, "cuda", cli_argv=argv, timeout=DP2_TIMEOUT)
+        wall = time.perf_counter() - t0
+        out_dir = os.path.join(tmp, "out", "abdomenCT_0")
+        expected = [os.path.join(out_dir, f"lr_0.0001_train_size_1000000_host{r}_logger.txt")
+                    for r in range(2)]
+        expected.append(os.path.join(out_dir, "checkpoints", "best", "model.pt"))
+        missing = [p for p in expected if not os.path.exists(p)]
+    steps = cli[0]["step_seconds"]
+    log(f"[dp-2] medseg_torch.cli.segmentation --data-parallel on 2 processes (one card, gloo), "
+        f"abdomenCT 14 classes, one volume x 4 crops per rank: steps {['%.3f' % v for v in steps]}"
+        f" s ({(len(steps) - 1) / sum(steps[1:]):.3f} steps/s after the first), CLI "
+        f"{cli[0]['cli_seconds']:.1f} s in rank 0, {wall:.1f} s wall for both [{card}]; final "
+        f"dice per rank {[r['final'][0]['dice'] for r in cli]}, saves per rank "
+        f"{[r['saves'] for r in cli]}")
+    if bad or missing:
+        raise RuntimeError(f"dp-2 CLI: {bad}, missing {missing}")
+    launches = sum_launches([launches] + [r["launches"] for r in cli])
+    require_launched(launches, TRAIN_KERNELS + ZROW_KERNELS, "dp-2")
+    return launches
+
+
 def main() -> int:
     from medseg_torch.kernels import kernel_check
 
@@ -1242,6 +1459,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.mri_training_cases, "mri-train-kernel")
     paths["seg-cli-mri"] = phase_seg_cli_mri(device, card)
+    torch.cuda.empty_cache()
+    paths["determinism"] = phase_determinism(device, card)
+    torch.cuda.empty_cache()
+    paths["dp"] = phase_dp(device, card)
+    torch.cuda.empty_cache()
+    paths["dp-2"] = phase_dp2(device, card)
     kernels = []
     for name, (src, tpu, _) in KERNELS.items():
         row = table[name]

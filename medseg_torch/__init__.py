@@ -17,6 +17,9 @@ is). Module names mirror ``medseg/`` so each counterpart is easy to find:
 - ``engine.evaluate``: the ``Validator``;
 - ``engine.state`` and ``engine.train``: the train state (AdamW), the
   supervised step and the training loop;
+- ``parallel``: the data-parallel runtime on ``torch.distributed`` (the
+  process group from the JAX package's ``MEDSEG_*`` variables, the mesh and
+  its collectives, the sharded window walks' merge);
 - ``config``, ``data``, ``utils`` and ``cli``: presets, NIfTI I/O, the
   Decathlon datalist, the host preprocessing chains, throughput counters and
   the serving CLI (``python -m medseg_torch.cli.infer``).

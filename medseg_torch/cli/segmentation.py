@@ -14,9 +14,23 @@ run resumes from the fresher of the "latest" and "best" checkpoints, with
 the best Dice so far read from ``meta.json``. Runs on the card unless
 ``--device cpu`` is given; where matplotlib is not installed, the curves
 are left to their ``.npy`` series and the overlays are written as
-``overlays.npy``, each with a logged line. One process on one device: a
-multi-process configuration raises, and so does ``--data-parallel`` with
-more than one visible card.
+``overlays.npy``, each with a logged line.
+
+Multi-process runs (``medseg_torch.parallel.runtime``): ``main`` joins the
+process group that the ``MEDSEG_COORDINATOR`` / ``MEDSEG_NUM_PROCESSES`` /
+``MEDSEG_PROCESS_ID`` variables (or torchrun's, under
+``MEDSEG_DISTRIBUTED=1``) describe, one device per process (NCCL where each
+has a card of its own, gloo on the CPU or on a shared card). Each rank logs
+to its own files (``..._host<rank>``), seeds its host chain with ``seed +
+fold + 1009 * rank``, loads its ``rank::world`` slice of the training list
+(``drop_last``, every rank the same local batch), and with
+``--data-parallel`` steps on it with the gradients averaged over the ranks;
+every rank validates the whole validation list with the window grid sharded
+over the ranks, so all take the same best-checkpoint decision. Rank 0 alone
+writes checkpoints, series and figures; every rank restores the best
+checkpoint after the ``final_checkpoint_committed`` barrier. Without
+``--data-parallel`` each rank trains on its slice alone, as the JAX CLI
+does; ``--data-parallel`` in one process runs single-device and logs it.
 """
 
 from __future__ import annotations
@@ -49,6 +63,15 @@ from medseg_torch.engine.state import create_train_state
 from medseg_torch.engine.train import TrainLoop, make_train_step, make_validator
 from medseg_torch.ops.post import multichannel_to_label_map
 from medseg_torch.ops.sliding_window import SlidingWindowSpec
+from medseg_torch.parallel.runtime import (
+    barrier,
+    global_mesh,
+    initialize_distributed,
+    process_info,
+    replicate_multihost,
+    shard_batch_multihost,
+    shard_datalist,
+)
 from medseg_torch.utils.artifacts import (
     RunLogger,
     overlay_slices,
@@ -56,10 +79,6 @@ from medseg_torch.utils.artifacts import (
     save_metric_series,
     save_slice_overlays,
 )
-
-# the JAX package's multi-process configuration (``medseg.parallel.runtime``)
-DISTRIBUTED_ENV = ("MEDSEG_DISTRIBUTED", "MEDSEG_COORDINATOR", "MEDSEG_NUM_PROCESSES",
-                   "MEDSEG_PROCESS_ID")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-augment", action="store_true",
                    help="run flip/rot90/shift augmentations on device inside the train step")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the crop batch over all devices (one device: single-device)")
+                   help="average the gradients over the processes, each stepping on its own "
+                        "crops (one process: single-device)")
     p.add_argument("--sw-overlap", type=float, default=0.25)
     p.add_argument("--sw-mode", type=str, default="constant", choices=["constant", "gaussian"])
     p.add_argument("--save-latest-every", type=int, default=None,
@@ -109,33 +129,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_single_process() -> None:
-    """The port runs one process (``medseg/parallel`` is not ported): raise
-    where the JAX package's multi-process configuration is present, as its
-    ``initialize_distributed`` reads it."""
-    env = {k: os.environ[k] for k in DISTRIBUTED_ENV if os.environ.get(k)}
-    multi = env.get("MEDSEG_NUM_PROCESSES") != "1" and (
-        env.get("MEDSEG_DISTRIBUTED") == "1" or set(env) - {"MEDSEG_DISTRIBUTED"}
-    )
-    if multi:
-        raise NotImplementedError(
-            f"multi-process configuration {env}: the PyTorch port runs one process "
-            "(the parallel runtime is not ported, ROADMAP.md Queue 1 item 7)"
-        )
-
-
-def check_single_device(args, device: torch.device, logger: RunLogger) -> None:
-    """``--data-parallel`` runs single-device where one device is visible,
-    and raises where more are."""
+def data_parallel_mesh(args, device: torch.device, logger: RunLogger):
+    """The mesh of a ``--data-parallel`` run over several processes, else
+    None (one process runs single-device, and says so)."""
+    rank, world = process_info()
     if not args.data_parallel:
-        return
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if cards > 1:
-        raise NotImplementedError(
-            f"--data-parallel over {cards} visible cards: the PyTorch port runs on one "
-            "device (ROADMAP.md Queue 1 item 7); make one card visible"
-        )
-    logger.write("data-parallel requested with one device: running single-device")
+        if world > 1:
+            logger.write(f"rank {rank}/{world}: no --data-parallel; this rank trains on its "
+                         "slice of the training list alone")
+        return None
+    if world == 1:
+        logger.write(f"data-parallel requested with one device ({device}, one process): "
+                     "running single-device")
+        return None
+    mesh = global_mesh(device)
+    logger.write(f"data-parallel over {world} processes: {mesh}")
+    return mesh
 
 
 def have_matplotlib() -> bool:
@@ -144,25 +153,46 @@ def have_matplotlib() -> bool:
 
 def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
     device = torch.device(args.device)
+    rank, world = process_info()
     out_dir = make_output_dir(args.root_dir, args.pretrained, args.dataset_name, fold_idx)
-    logger = RunLogger(out_dir, f"lr_{args.learning_rate}_train_size_{int(args.train_size)}")
+    log_name = f"lr_{args.learning_rate}_train_size_{int(args.train_size)}"
+    if world > 1:
+        log_name += f"_host{rank}"  # one log per rank in the shared directory
+    logger = RunLogger(out_dir, log_name)
     logger.write(f"fold {fold_idx}: {len(train_list)} train / {len(val_list)} val volumes")
-    check_single_device(args, device, logger)
+    mesh = data_parallel_mesh(args, device, logger)
 
     model = build_model(args, cfg)
-    rng_np = np.random.default_rng(args.seed + fold_idx)
+    # each rank loads its rank::world slice of the training list; the
+    # validation list stays global (every rank runs the same validation)
+    train_list_local = shard_datalist(train_list)
+    if world > 1:
+        logger.write(f"rank {rank}/{world}: {len(train_list_local)} local train volumes")
+        if len(train_list_local) < args.batch_size:
+            raise ValueError(
+                f"rank {rank}: local slice of the training list ({len(train_list_local)} "
+                f"volumes) smaller than batch_size {args.batch_size}: with drop_last the "
+                "loader would yield nothing; use more data or a smaller batch")
+    rng_np = np.random.default_rng(args.seed + fold_idx + 1009 * rank)
     train_ds = CacheDataset(
-        train_list,
+        train_list_local,
         transform=train_transforms(cfg.data, rng_np, augment=not args.device_augment),
     )
     val_ds = CacheDataset(val_list, transform=val_transforms(cfg.data))
+    put = partial(device_put_batch, device=device)
+    if mesh is not None:
+        # every rank must step on the same local batch: the loader drops a
+        # short last batch and the guard raises on the rank at fault
+        put = partial(shard_batch_multihost, mesh,
+                      expected_local_batch=args.batch_size * cfg.data.num_crop_samples)
     train_loader = DataLoader(
         train_ds,
         batch_size=args.batch_size,
         shuffle=True,
         num_workers=cfg.data.num_workers,
         seed=args.seed,
-        device_put=partial(device_put_batch, device=device),
+        device_put=put,
+        drop_last=world > 1,
     )
     val_loader = DataLoader(
         val_ds, batch_size=1, shuffle=False, num_workers=cfg.data.num_workers
@@ -185,6 +215,8 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
             # this run's; torch's optimizer state carries the saved one
             for group in state.optimizer.param_groups:
                 group["lr"] = args.learning_rate
+    if mesh is not None:
+        replicate_multihost(mesh, state.model)  # rank 0's weights on every rank
 
     crop = cfg.model.crop_size
     spec = SlidingWindowSpec(
@@ -209,7 +241,7 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
 
     if args.mode == "train":
         progress = None
-        if not args.no_progress:
+        if not args.no_progress and rank == 0:
             def progress(step, total, loss):
                 tag = "-----" if np.isnan(loss) else f"{loss:2.5f}"
                 print(f"Training ({step} / {total} Steps) (loss={tag})", file=sys.stderr,
@@ -220,14 +252,15 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
             logger.write(msg)
 
         loop = TrainLoop(
-            make_train_step(model, task=cfg.data.task, device_augment=args.device_augment),
+            make_train_step(model, task=cfg.data.task, device_augment=args.device_augment,
+                            mesh=mesh),
             max_iterations=args.max_iterations,
             eval_num=args.eval_num,
             # mean Dice of the current weights; a Validator per call (it
             # casts the kernels' weights once when it is built)
             validator=make_validator(volumes, args.n_classes, cfg.data.task, spec,
-                                     device=device),
-            checkpointer=ckpt,
+                                     device=device, mesh=mesh),
+            checkpointer=ckpt if rank == 0 else None,
             log_fn=log_fn,
             save_latest_every=args.save_latest_every,
             sync_every=args.sync_every,
@@ -251,25 +284,31 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
 
         state = loop.run(state, batches())
         prefix = f"lr_{args.learning_rate}"
-        save_metric_series(
-            out_dir, prefix, {"loss": loop.loss_history, "dice": loop.metric_history}
-        )
-        if have_matplotlib():
-            plot_training_curves(
-                os.path.join(out_dir, "curves.png"),
-                loop.loss_history,
-                loop.metric_history,
-                args.eval_num,
+        if rank == 0:  # the series and curves are rank 0's
+            save_metric_series(
+                out_dir, prefix, {"loss": loop.loss_history, "dice": loop.metric_history}
             )
-        else:
-            logger.write(f"matplotlib is not installed: curves.png not drawn; its series are "
-                         f"{prefix}_loss.npy and {prefix}_dice.npy")
+            if have_matplotlib():
+                plot_training_curves(
+                    os.path.join(out_dir, "curves.png"),
+                    loop.loss_history,
+                    loop.metric_history,
+                    args.eval_num,
+                )
+            else:
+                logger.write(f"matplotlib is not installed: curves.png not drawn; its series "
+                             f"are {prefix}_loss.npy and {prefix}_dice.npy")
 
-    # final evaluation with all metrics, of the best checkpoint
-    ckpt.wait()
+    # final evaluation with all metrics, of the best checkpoint: rank 0
+    # commits any save in flight, and every rank waits for it before reading
+    # the checkpoint, so that all evaluate the same weights
+    if rank == 0:
+        ckpt.wait()
+    barrier("final_checkpoint_committed")
     if ckpt.exists():
         state = ckpt.restore(state)
-    validator = Validator(state.model, args.n_classes, cfg.data.task, spec, device=device)
+    validator = Validator(state.model, args.n_classes, cfg.data.task, spec, device=device,
+                          mesh=mesh)
     result = validator(volumes(), all_metrics=True)
     summary = {
         "dice": result.mean_dice,
@@ -280,19 +319,21 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
     }
     logger.write(f"fold {fold_idx} final: {summary}")
     logger.event("final_metrics", fold=fold_idx, **summary)
-    save_metric_series(
-        out_dir,
-        "final",
-        {
-            "dice_per_class": result.per_class_dice,
-            "precision_per_class": result.per_class_precision,
-            "recall_per_class": result.per_class_recall,
-            "hausdorff_per_class": result.per_class_hausdorff,
-        },
-    )
+    if rank == 0:
+        save_metric_series(
+            out_dir,
+            "final",
+            {
+                "dice_per_class": result.per_class_dice,
+                "precision_per_class": result.per_class_precision,
+                "recall_per_class": result.per_class_recall,
+                "hausdorff_per_class": result.per_class_hausdorff,
+            },
+        )
 
     # slice overlays for fold 0, from a walk at overlap 0.8 (the reference's
-    # overlay setting, not the evaluation's overlap)
+    # overlay setting, not the evaluation's overlap); every rank runs the
+    # sharded walk, rank 0 writes the figure
     if fold_idx == 0 and len(val_ds) > 0:
         sample0 = val_ds[0]
         overlay_spec = SlidingWindowSpec(
@@ -300,30 +341,39 @@ def run_fold(args, cfg, fold_idx, train_list, val_list) -> dict:
             bucket_multiple=spec.bucket_multiple,
         )
         mask = validator.predict_mask(sample0["image"], overlay_spec)
-        if cfg.data.task == "ct":
-            pred_map = mask.argmax(dim=-1).cpu().numpy()
-            label_map = np.asarray(sample0["label"][..., 0]).astype(np.int64)
-        else:
-            pred_map = multichannel_to_label_map(mask).cpu().numpy()
-            label_map = multichannel_to_label_map(torch.as_tensor(sample0["label"])).numpy()
-        image = np.asarray(sample0["image"][..., 0])
-        if have_matplotlib():
-            save_slice_overlays(
-                os.path.join(out_dir, "overlays.pdf"), image, label_map, pred_map, args.n_classes
-            )
-        else:
-            slices = overlay_slices(label_map, pred_map, args.n_classes)
-            np.save(os.path.join(out_dir, "overlays.npy"), np.stack(
-                [image[:, :, slices], label_map[:, :, slices], pred_map[:, :, slices]]
-            ).astype(np.float32))
-            logger.write(f"matplotlib is not installed: overlays.pdf not drawn; slices {slices} "
-                         "(image, label, prediction) are in overlays.npy")
+        if rank == 0:
+            write_overlays(out_dir, sample0, mask, cfg.data.task, args.n_classes, logger)
     return summary
+
+
+def write_overlays(out_dir: str, sample0: dict, mask: torch.Tensor, task: str, n_classes: int,
+                   logger: RunLogger) -> None:
+    """The overlays of the first validation volume: ``overlays.pdf``, or
+    where matplotlib is not installed, its slices in ``overlays.npy``."""
+    if task == "ct":
+        pred_map = mask.argmax(dim=-1).cpu().numpy()
+        label_map = np.asarray(sample0["label"][..., 0]).astype(np.int64)
+    else:
+        pred_map = multichannel_to_label_map(mask).cpu().numpy()
+        label_map = multichannel_to_label_map(torch.as_tensor(sample0["label"])).numpy()
+    image = np.asarray(sample0["image"][..., 0])
+    if have_matplotlib():
+        save_slice_overlays(
+            os.path.join(out_dir, "overlays.pdf"), image, label_map, pred_map, n_classes
+        )
+        return
+    slices = overlay_slices(label_map, pred_map, n_classes)
+    np.save(os.path.join(out_dir, "overlays.npy"), np.stack(
+        [image[:, :, slices], label_map[:, :, slices], pred_map[:, :, slices]]
+    ).astype(np.float32))
+    logger.write(f"matplotlib is not installed: overlays.pdf not drawn; slices {slices} "
+                 "(image, label, prediction) are in overlays.npy")
 
 
 def main(argv=None) -> list[dict]:
     args = build_parser().parse_args(argv)
-    check_single_process()
+    # joins the process group where a multi-process configuration is present
+    initialize_distributed(device=args.device)
     cfg = apply_overrides(preset(args.dataset_name, args.n_classes), args)
     datalist = resolve_datalist(args.data_dir, args.dataset_name)
     folds = fold_datalists(datalist, args.dataset_name, args.folds, cfg.data.cv_seed)

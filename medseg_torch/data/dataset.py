@@ -1,5 +1,4 @@
-"""Dataset handling (a copy of ``medseg/data/dataset.py`` without
-``DecathlonDataset``).
+"""Dataset handling (a copy of ``medseg/data/dataset.py``).
 
 - ``load_decathlon_datalist``: parse a ``dataset.json`` list of {"image",
   "label"} entries (or bare image paths) into absolute paths;
@@ -9,6 +8,8 @@
 - ``ListDataset`` / ``CacheDataset``: map-style datasets applying a
   transform (with ``cache_rate > 0`` the deterministic prefix is computed
   once);
+- ``DecathlonDataset`` / ``validate_msd_layout``: MONAI's MSD task layout
+  and sections, and the check of an extracted task directory;
 - ``decollate_batch``: a batched dict back into per-sample dicts.
 """
 
@@ -135,6 +136,99 @@ class CacheDataset(ListDataset):
         if self.cache_transform:
             sample = self.cache_transform(sample)
         return self.transform(sample) if self.transform else sample
+
+
+class DecathlonDataset(ListDataset):
+    """MONAI ``DecathlonDataset`` layout and section handling.
+
+    Expects the MSD on-disk layout ``root_dir/TaskXX_Name/{imagesTr,labelsTr,
+    imagesTs,dataset.json}``. ``section`` selects:
+
+    - "training"/"validation": the "training" datalist split by a seeded
+      index shuffle (``np.random.RandomState(seed)``, seed default 0): the
+      first ``int(len * val_frac)`` shuffled indices are "validation"
+      (val_frac default 0.2), the rest "training" (the MONAI 0.6
+      ``DecathlonDataset._split_datalist`` rule);
+    - "test": the "test" list (bare imagesTs paths -> {"image": path}).
+
+    ``properties`` holds the dataset.json header fields (labels, modality,
+    tensorImageSize, ...). There is no download: ``download=True`` only adds
+    to the message of the ``FileNotFoundError`` of a missing task. Under
+    ``CrossValidationFolds`` the fold partition replaces this split, as
+    MONAI's ``CrossValidation`` overrides ``_split_datalist``.
+    """
+
+    _PROPERTY_KEYS = (
+        "name", "description", "reference", "licence", "tensorImageSize",
+        "modality", "labels", "numTraining", "numTest",
+    )
+
+    def __init__(
+        self,
+        root_dir: str,
+        task: str,
+        section: str = "training",
+        transform: Callable | None = None,
+        download: bool = False,
+        seed: int = 0,
+        val_frac: float = 0.2,
+    ):
+        task_dir = os.path.join(root_dir, task)
+        json_path = os.path.join(task_dir, "dataset.json")
+        if not os.path.exists(json_path):
+            hint = (
+                " (download=True is not supported in this offline build; place "
+                "the extracted MSD task at this path)"
+                if download
+                else ""
+            )
+            raise FileNotFoundError(f"MSD layout not found: {json_path}{hint}")
+        with open(json_path) as f:
+            meta = json.load(f)
+        self.properties = {k: meta[k] for k in self._PROPERTY_KEYS if k in meta}
+        self.section = section
+        key = "test" if section == "test" else "training"
+        datalist = load_decathlon_datalist(json_path, True, key)
+        validate_msd_layout(task_dir, meta, datalist)
+        super().__init__(self._split_datalist(datalist, seed, val_frac), transform)
+
+    def _split_datalist(self, datalist: list[dict], seed: int, val_frac: float):
+        if self.section == "test":
+            return datalist
+        indices = np.arange(len(datalist))
+        np.random.RandomState(seed).shuffle(indices)
+        val_len = int(len(datalist) * val_frac)
+        keep = indices[:val_len] if self.section == "validation" else indices[val_len:]
+        return [datalist[i] for i in keep]
+
+
+def validate_msd_layout(task_dir: str, meta: dict, datalist: list[dict]) -> None:
+    """Check an extracted MSD task directory (the offline stand-in for
+    MONAI ``DecathlonDataset(download=True)``'s download, extract and verify
+    step): ``imagesTr``/``labelsTr`` present, every datalist file on disk,
+    the declared ``numTraining`` consistent with the list. Raises a
+    ``RuntimeError`` naming what is missing."""
+    problems: list[str] = []
+    for sub in ("imagesTr", "labelsTr"):
+        if not os.path.isdir(os.path.join(task_dir, sub)):
+            problems.append(f"missing directory {sub}/")
+    missing_files = [
+        p for item in datalist for k in ("image", "label")
+        if isinstance(p := item.get(k), str) and not os.path.exists(p)
+    ]
+    if missing_files:
+        shown = ", ".join(os.path.basename(p) for p in missing_files[:5])
+        more = f" (+{len(missing_files) - 5} more)" if len(missing_files) > 5 else ""
+        problems.append(f"{len(missing_files)} datalist files missing: {shown}{more}")
+    declared = meta.get("numTraining")
+    n_train = len(meta.get("training", []))
+    if isinstance(declared, int) and n_train and declared != n_train:
+        problems.append(f"dataset.json declares numTraining={declared} but lists {n_train}")
+    if problems:
+        raise RuntimeError(
+            f"MSD task at {task_dir} is incomplete or corrupt: " + "; ".join(problems)
+            + ". Re-extract the task archive (download is unsupported offline)."
+        )
 
 
 def decollate_batch(batch: dict) -> list[dict]:

@@ -187,8 +187,9 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
         if not os.path.exists(best):
             raise NotImplementedError(
                 f"{path} is not a checkpoint directory of medseg_torch's CheckpointManager "
-                f"(no best/{MODEL_FILE}); orbax checkpoints of the JAX package are not read "
-                "(ROADMAP.md Queue 1 item 7)"
+                f"(no best/{MODEL_FILE}); orbax checkpoints of the JAX package are outside "
+                "the port's scope: convert the weights to a .pth state_dict (the weight "
+                "bridge, engine.checkpoint.state_dict_from_flax) and pass that file"
             )
         path = best
     state_dict = torch.load(path, map_location="cpu")

@@ -17,6 +17,14 @@ the fast path, or where the predicate is false (a width the kernels lack, a
 window below 48^3 on the card), the module forward runs through the flat
 walk with an fp32 accumulator (the JAX "ndhwc" route, which does not read
 ``acc_dtype``).
+
+With a data-parallel ``mesh`` (``medseg_torch.parallel``), as the JAX
+Validator with its mesh, every rank runs the same validation with the window
+grid sharded over the ranks: the z-row walk's d-starts where the fast path
+and ``zrow_supported`` hold (``sliding_window_inference_zrow_sharded``), the
+flat walk's batches otherwise (``sliding_window_inference_sharded``). The
+all-reduced logits are the same bits on every rank, so every rank computes
+the same metrics.
 """
 
 from __future__ import annotations
@@ -33,9 +41,13 @@ from medseg_torch.ops.post import argmax_onehot, sigmoid_threshold, to_onehot
 from medseg_torch.ops.sliding_window import (
     SlidingWindowSpec,
     sliding_window_inference,
+    sliding_window_inference_sharded,
     zrow_supported,
 )
-from medseg_torch.ops.swi_zrow import sliding_window_inference_zrow
+from medseg_torch.ops.swi_zrow import (
+    sliding_window_inference_zrow,
+    sliding_window_inference_zrow_sharded,
+)
 
 
 @dataclasses.dataclass
@@ -67,12 +79,15 @@ class Validator:
       acc_dtype: "fp32" (default, the MONAI contract) or "bf16": the blend
         accumulator of the fast path's walks.
       device: where the model, the windows and the accumulator live.
+      mesh: a ``medseg_torch.parallel.Mesh`` to shard the window grid over
+        (every rank calls the Validator on the same volumes), or None.
     """
 
     def __init__(self, model, n_classes: int, task: str, spec: SlidingWindowSpec, *,
                  use_fast_path: bool = True, acc_dtype: str = "fp32",
-                 device: torch.device | str) -> None:
+                 device: torch.device | str, mesh=None) -> None:
         self.device = torch.device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.n_classes = n_classes
         self.task = task
@@ -101,6 +116,8 @@ class Validator:
     def infer_volume(self, image, spec: SlidingWindowSpec | None = None) -> torch.Tensor:
         """Blended whole-volume logits, (D, H, W, K) fp32 on the device."""
         spec = spec or self.spec
+        if self.mesh is not None:
+            return self._infer_sharded(image, spec)
         if not self.use_fast_path:
             return sliding_window_inference(
                 image, self._apply_fn, self.n_classes, spec, device=self.device,
@@ -114,6 +131,18 @@ class Validator:
         return sliding_window_inference(
             image, self._apply_fn, self.n_classes, spec, device=self.device,
             apply_takes_weight=True, acc_dtype=self.acc_dtype,
+        )
+
+    def _infer_sharded(self, image, spec: SlidingWindowSpec) -> torch.Tensor:
+        spatial = tuple(int(v) for v in image.shape[-4:-1])
+        if self.use_fast_path and zrow_supported(spatial, spec):
+            return sliding_window_inference_zrow_sharded(
+                image, self._apply_acc, self.n_classes, spec, self.mesh,
+                acc_dtype=self.acc_dtype,
+            )
+        return sliding_window_inference_sharded(
+            image, self._apply_fn, self.n_classes, spec, self.mesh,
+            apply_takes_weight=self.use_fast_path,
         )
 
     def predict_mask(self, image, spec: SlidingWindowSpec | None = None) -> torch.Tensor:

@@ -37,6 +37,15 @@ def adamw(params, learning_rate: float, weight_decay: float) -> torch.optim.Adam
     )
 
 
+def fill_missing_gradients(model: nn.Module) -> None:
+    """A zero gradient for every parameter that no gradient reached (run
+    before a data-parallel all-reduce too, so that every rank reduces every
+    parameter's gradient)."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def apply_gradients(state: TrainState) -> TrainState:
     """One optimizer step over every parameter, as optax updates every leaf:
     a parameter that no gradient reached (the decoder in the feat stage, the
@@ -44,9 +53,7 @@ def apply_gradients(state: TrainState) -> TrainState:
     decay and the moments carried from earlier steps still move it, and every
     parameter's step count advances with the state's. ``torch.optim.AdamW``
     would skip a parameter whose ``.grad`` is None."""
-    for p in state.model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    fill_missing_gradients(state.model)
     state.optimizer.step()
     state.step += 1
     return state

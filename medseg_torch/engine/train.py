@@ -6,7 +6,9 @@ AdamW update; every ``eval_num`` steps the loop validates and keeps the best
 mean-Dice checkpoint. The loss is fp32 whatever the model's compute dtype.
 On a CUDA device the CT loss runs through the fused DiceCE kernels (K7, K8)
 and the routed 3x3x3 convs through K1 and K6; on the CPU their plain
-versions run.
+versions run. With a data-parallel mesh (``medseg_torch.parallel``) each
+rank steps on its rows of the global batch and the gradients are averaged
+over the ranks before the update, as the JAX step over a mesh does.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from typing import Callable, Iterable, Iterator
 import torch
 
 from medseg_torch.engine.evaluate import Validator
-from medseg_torch.engine.state import TrainState, apply_gradients
+from medseg_torch.engine.state import TrainState, apply_gradients, fill_missing_gradients
 from medseg_torch.kernels.loss_of import dice_ce_fused, fused_loss_supported
 from medseg_torch.ops.augment import augment_batch
 from medseg_torch.ops.losses import dice_ce_loss
 from medseg_torch.ops.sliding_window import SlidingWindowSpec
+from medseg_torch.parallel.mesh import all_reduce_gradients
 
 TASKS = ("ct", "mri")
 
@@ -48,7 +51,7 @@ def make_loss_fn(task: str) -> Callable:
 
 
 def make_train_step(
-    model, *, task: str = "ct", device_augment: bool = False
+    model, *, task: str = "ct", device_augment: bool = False, mesh=None
 ) -> Callable[[TrainState, dict], tuple[TrainState, torch.Tensor]]:
     """The supervised step: ``state, loss = step(state, {"image": ...,
     "label": ...})`` updates ``state`` in place (the model's parameters, the
@@ -60,8 +63,17 @@ def make_train_step(
     chain (``ops/augment.py``) on the batch on the device, inside the step,
     with per-sample decisions drawn on the host from ``state.generator``;
     use it with the host augmentations off
-    (``pipelines.train_transforms(..., augment=False)``)."""
+    (``pipelines.train_transforms(..., augment=False)``).
+
+    ``mesh`` (a ``medseg_torch.parallel.Mesh``): the batch is this rank's
+    rows of the global batch (equal on every rank); after ``backward`` the
+    missing gradients are filled with zeros and every gradient is averaged
+    over the ranks (``all_reduce_gradients``), so every rank applies the
+    global batch's update to identical weights. The loss returned is this
+    rank's. The augmentation draws the global batch's decisions and applies
+    this rank's rows'."""
     loss_fn = make_loss_fn(task)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.data)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, torch.Tensor]:
         if state.model is not model:
@@ -70,12 +82,15 @@ def make_train_step(
         image = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
         label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
         if device_augment:
-            image, label = augment_batch(state.generator, image, label)
+            image, label = augment_batch(state.generator, image, label, rank=rank, world=world)
         if task == "ct":
             label = label.to(torch.int32)
         loss = loss_fn(model, image, label)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            fill_missing_gradients(model)
+            all_reduce_gradients(mesh, model)
         return apply_gradients(state), loss.detach()
 
     return step
@@ -88,15 +103,17 @@ def make_validator(
     spec: SlidingWindowSpec,
     *,
     device: torch.device | str,
+    mesh=None,
 ) -> Callable[[TrainState], float]:
     """``validator(state)`` -> mean Dice of the state's CURRENT weights over
     ``volumes()``. A ``Validator`` casts the kernels' weights once when it is
     built, so one is built per call; the model goes back to train mode
-    afterwards."""
+    afterwards. ``mesh``: the window grids sharded over its ranks, each of
+    which validates the same volumes."""
 
     def validate(state: TrainState) -> float:
         try:
-            validator = Validator(state.model, n_classes, task, spec, device=device)
+            validator = Validator(state.model, n_classes, task, spec, device=device, mesh=mesh)
             return validator(volumes()).mean_dice
         finally:
             state.model.train()

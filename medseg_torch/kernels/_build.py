@@ -30,8 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # device, bf16, mode, residual, c_out, x0, x1, x2, a0, b0, a1, b1, w, wres,
-    # out, s, ss, res, rs, rss, B, C, Ch, Cx, D, H, W, stream
-    "medseg_conv3x3x3": [_I] * 5 + [_P] * 15 + [_I] * 7 + [_P],
+    # out, s, ss, res, rs, rss, part, slots, B, C, Ch, Cx, D, H, W, stream
+    "medseg_conv3x3x3": [_I] * 5 + [_P] * 16 + [_I] * 8 + [_P],
     # device, bf16, scaled, z, r, az, bz, ar, br, kout, bias, scale, out, B,
     # C, K, V, stream
     "medseg_outhead": [_I] * 3 + [_P] * 10 + [_I] * 3 + [ctypes.c_longlong, _P],
@@ -46,8 +46,9 @@ _SIGNATURES = {
     # device, bf16, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad": [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
     # device, mode, residual, c_out, staging, x0, x1, x2, a0, b0, a1, b1,
-    # w_packed, wres_packed, out, s, ss, res, rs, rss, B, C, Cx, D, H, W, stream
-    "medseg_conv_tc": [_I] * 5 + [_P] * 15 + [_I] * 6 + [_P],
+    # w_packed, wres_packed, out, s, ss, res, rs, rss, part, slots, B, C, Cx,
+    # D, H, W, stream
+    "medseg_conv_tc": [_I] * 5 + [_P] * 16 + [_I] * 7 + [_P],
     # device, mode, residual, c_out, staging, C, Cx, plan (4 ints out)
     "medseg_conv_tc_plan": [_I] * 7 + [_P],
     # device, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream

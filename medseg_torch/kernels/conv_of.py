@@ -50,6 +50,11 @@ read it, so that they never send one.
 
 Layouts are NCDHW and torch's own weight layouts. The compute dtype is the
 weight dtype (fp32 or bf16): operands are rounded to it, sums are fp32.
+K1, K2 and K5 add their per-(b, c) statistics in a fixed order: each block
+(CUDA cores) or tile group (tensor cores) stores its partial sums into a
+slot of its own in a buffer the wrapper allocates (``cuda_core_stat_slots``,
+``tc_stat_slots``), and a second kernel of the same C call adds the slots in
+one order, so the same inputs give the same bits on every call.
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its CUDA kernel (``csrc/``) or raises. Each wrapper's ``launches``
 counts its kernel launches, and ``tc_launches`` those of them that took the
@@ -59,6 +64,7 @@ tensor-core route.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +101,8 @@ TC_TILE = (2, 8, 16)  # (z, y, x) voxel tile of a block of either
 TC_ASYNC_MODES = ("cat2", "flat")
 TC_ASYNC_W_ALIGN = 8
 WGRAD_TC_BLOCKS_PER_SM = 2  # K6 tile groups per SM (two blocks fit at C_out = 16)
+CC_TILE = (2, 16, 16)  # (z, y, x) voxel tile of a block of csrc/conv_of.cu
+TC_GROUP_THREADS = 256  # threads of a tile group of csrc/conv_tc.cu (NT)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -353,14 +361,15 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     for i, t in enumerate(affines):
         _check(t, f"affine {i}", (bsz, aff_width), torch.float32, dev)
         aff[i] = t
-    outs = _conv_outputs((bsz, c_out, *vol), dt, dev, wres is not None)
+    slots = cuda_core_stat_slots(d, h, w)
+    outs, part = _conv_outputs((bsz, c_out, *vol), dt, dev, wres is not None, slots)
     out, s, ss, res, rs, rss = outs
     xs = list(streams) + [None] * (3 - len(streams))
     err = _build.lib().medseg_conv3x3x3(
         dev.index,
         int(dt == torch.bfloat16), _MODES[mode], int(wres is not None), c_out,
         *map(_ptr, xs), *map(_ptr, aff), _ptr(weight), _ptr(wres),
-        _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs), _ptr(rss),
+        _ptr(out), _ptr(s), _ptr(ss), _ptr(res), _ptr(rs), _ptr(rss), _ptr(part), slots,
         bsz, c, c_half, x_channels, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"conv3x3x3 kernel ({mode})")
@@ -368,15 +377,52 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
     return outs if wres is not None else outs[:3]
 
 
-def _conv_outputs(shape, dtype, device, residual: bool):
-    """A conv kernel's outputs: (out, s, ss, res, rs, rss), the sums zeroed
-    for the kernel's atomics; the residual three None without the tap."""
+def _conv_outputs(shape, dtype, device, residual: bool, slots: int):
+    """A conv kernel's outputs, (out, s, ss, res, rs, rss) with the
+    residual three None without the tap, and the buffer of its statistics'
+    partial sums, ``slots`` per (sum, b, c): nothing is zeroed, the kernels
+    write every element they read."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    s = torch.zeros(shape[:2], dtype=torch.float32, device=device)
+    empty = functools.partial(torch.empty, shape[:2], dtype=torch.float32, device=device)
+    part = torch.empty((4 if residual else 2) * shape[0] * shape[1] * slots,
+                       dtype=torch.float32, device=device)
     if not residual:
-        return out, s, torch.zeros_like(s), None, None, None
-    zeros = torch.zeros_like
-    return out, s, zeros(s), torch.empty_like(out), zeros(s), zeros(s)
+        return (out, empty(), empty(), None, None, None), part
+    return (out, empty(), empty(), torch.empty_like(out), empty(), empty()), part
+
+
+def cuda_core_stat_slots(d: int, h: int, w: int) -> int:
+    """Partial-sum slots of a CUDA-core conv launch (``csrc/conv_of.cu``):
+    its blocks per batch element."""
+    n = 1
+    for size, edge in zip((d, h, w), CC_TILE):
+        n *= -(-size // edge)
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(device_index: int, mode: str, residual: int, c_out: int, staging: int, c: int,
+            x_channels: int) -> tuple[int, int, int, int]:
+    """The launch plan of a tensor-core conv (``medseg_conv_tc_plan``):
+    blocks per SM, threads per block, shared memory per block, whether the
+    weights are resident. Cached per library: clear it
+    (``tc_plan.cache_clear()``) after swapping the library."""
+    plan = (ctypes.c_int * 4)()
+    _build.check(_build.lib().medseg_conv_tc_plan(device_index, _MODES[mode], residual, c_out,
+                                                  staging, c, x_channels, plan),
+                 f"conv3x3x3 tensor-core plan ({mode})")
+    return tuple(plan)
+
+
+def tc_stat_slots(device: torch.device, mode: str, residual: int, c_out: int, staging: int,
+                  c: int, x_channels: int, ntiles: int) -> int:
+    """Partial-sum slots of a tensor-core conv launch: its tile groups,
+    as ``csrc/conv_tc.cu`` sizes the persistent grid (blocks per SM x SMs,
+    or fewer where the volume has fewer tiles, times groups per block)."""
+    per_sm, threads = tc_plan(device.index, mode, residual, c_out, staging, c, x_channels)[:2]
+    groups = threads // TC_GROUP_THREADS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(-(-ntiles // groups), per_sm * sms) * groups
 
 
 def _launch_conv_tc(mode, streams, weight, wres, affines, x_channels):
@@ -406,17 +452,23 @@ def _launch_conv_tc(mode, streams, weight, wres, affines, x_channels):
             raise ValueError(f"affine {i} must start at a 16-byte boundary")
     xs = list(streams) + [None] * (3 - len(streams))
     aff = list(affines) + [None] * (4 - len(affines))
-    outs = _conv_outputs((bsz, c_out, d, h, w), dt, dev, wres is not None)
+    staging = tc_staging(mode, w)
+    residual = int(wres is not None)
+    slots = tc_stat_slots(dev, mode, residual, c_out, staging, c, x_channels,
+                          tc_tiles(x0.shape))
+    outs, part = _conv_outputs((bsz, c_out, d, h, w), dt, dev, wres is not None, slots)
+    if part.numel() >= 2**31:  # the kernel's 32-bit slot offsets
+        raise ValueError(f"conv3x3x3 tensor-core kernel ({mode}): batch {bsz} too large for "
+                         "its statistics' partial sums")
     out, s, ss, res, rs, rss = outs
     w_packed = pack_tc_weight(weight)
     wres_packed = None if wres is None else pack_tc_wres(wres)
-    staging = tc_staging(mode, w)
     if staging:
         _check_async_aligned(streams)
     err = _build.lib().medseg_conv_tc(
-        dev.index, _MODES[mode], int(wres is not None), c_out, staging, *map(_ptr, xs),
+        dev.index, _MODES[mode], residual, c_out, staging, *map(_ptr, xs),
         *map(_ptr, aff), _ptr(w_packed), _ptr(wres_packed), _ptr(out), _ptr(s), _ptr(ss),
-        _ptr(res), _ptr(rs), _ptr(rss), bsz, c, x_channels, d, h, w,
+        _ptr(res), _ptr(rs), _ptr(rss), _ptr(part), slots, bsz, c, x_channels, d, h, w,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"conv3x3x3 tensor-core kernel ({mode})")
@@ -446,8 +498,8 @@ def launch_flat_tc(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         _check_async_aligned((x,))
     err = _build.lib().medseg_conv_tc(
         dev.index, _MODES["flat"], 0, c_out, staging, _ptr(x), None, None, None, None, None, None,
-        _ptr(pack_tc_weight(weight)), None, _ptr(out), None, None, None, None, None, bsz, c, 0, d,
-        h, w, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(pack_tc_weight(weight)), None, _ptr(out), None, None, None, None, None, None, 0, bsz,
+        c, 0, d, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "conv3x3x3 tensor-core kernel (flat)")
     return out

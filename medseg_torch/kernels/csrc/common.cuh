@@ -39,4 +39,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The per-(b, c) statistics of K1, K2 and K5 in a fixed order. Each producer
+// (a block of conv_of.cu, a tile group of conv_tc.cu) stores its partial sums
+// into a slot of its own, part[(k * B * co + e) * nslots + slot], for sum k
+// (0: s, 1: ss, 2: rs, 3: rss) of element e = b * co + c; no atomics.
+// ``stats_finish`` (conv_of.cu) then launches one block per (k, e), which
+// adds the element's partials in an order fixed by nslots alone (thread t:
+// slots t, t + 128, ... in turn; the lanes by the same shuffle tree; the
+// four warps in order) and writes out_k[e]. So every call on the same inputs
+// gives the same bits, whichever blocks ran first. With tiles_per_b > 0 the
+// producers are persistent tile groups (group g takes tiles g, g + nslots,
+// ... of ntiles, b's tiles being [b * tiles_per_b, (b + 1) * tiles_per_b)),
+// and slot g of b is read only where one of g's tiles is b's: the others
+// were never written. With 0, every slot was written.
+cudaError_t stats_finish(const float* part, int nslots, int nk, int B, int co, int tiles_per_b,
+                         int ntiles, float* s, float* ss, float* rs, float* rss,
+                         cudaStream_t stream);
+
 }  // namespace medseg

@@ -25,10 +25,11 @@
 // out [ci][tap][co] so that each thread reads them as broadcast float4s.
 // Each thread keeps the C_out fp32 sums of its TZ voxels in registers (one
 // input load feeds 2*C_out FMAs). Epilogue: store in the output dtype, warp
-// and block reduce per-channel sum and sum of squares of the fp32 values,
-// one atomicAdd per block and channel (the TPU summed over its sequential z
-// grid; Hopper blocks run in parallel). Tensor-core (wgmma) tiling is later
-// work.
+// and block reduce per-channel sum and sum of squares of the fp32 values
+// into the block's own slot of the partial sums, which ``stats_finish``
+// adds in a fixed order (the TPU summed over its sequential z grid; Hopper
+// blocks run in parallel, and atomics would add in a varying order).
+// Tensor-core tiling is conv_tc.cu's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,12 +59,14 @@ struct ConvArgs {
   const void* w;     // (CO, C, 3, 3, 3)
   const void* wres;  // (CO, C) residual tap, or null
   void* out;         // (B, CO, D, H, W)
-  float* s;          // (B, CO) sum, zeroed by the caller
+  float* s;          // (B, CO) sum, written by stats_finish
   float* ss;         // (B, CO) sum of squares
   void* res;
   float* rs;
   float* rss;
   int B, C, Ch, Cx, D, H, W;
+  float* part;       // the blocks' partial sums: [2 or 4][B][CO][nslots]
+  int nslots;        // blocks per batch element
 };
 
 template <typename T, int MODE>
@@ -97,11 +100,11 @@ constexpr int smem_floats() {
   return CC * HALO + CC * 27 * CO + (RES ? CC * CO : 0) + 2 * NWARPS * CO;
 }
 
-// Store TZ voxels x CO channels and add the block's per-channel sum and sum
-// of squares (of the fp32 values) into s / ss.
+// Store TZ voxels x CO channels and the block's per-channel sum and sum of
+// squares (of the fp32 values) into its slot of sums k0 and k0 + 1.
 template <typename T, int CO>
-__device__ __forceinline__ void store_with_stats(const float (&acc)[TZ][CO], T* out, float* s,
-                                                 float* ss, float* s_red, const ConvArgs& p,
+__device__ __forceinline__ void store_with_stats(const float (&acc)[TZ][CO], T* out, int k0,
+                                                 int slot, float* s_red, const ConvArgs& p,
                                                  int b, int z0, int gy, int gx, bool in_xy) {
   const long long HW = (long long)p.H * p.W;
   const long long V = HW * p.D;
@@ -134,8 +137,9 @@ __device__ __forceinline__ void store_with_stats(const float (&acc)[TZ][CO], T* 
       sum += s_red[w * CO + threadIdx.x];
       sq += s_red[(NWARPS + w) * CO + threadIdx.x];
     }
-    atomicAdd(&s[b * CO + threadIdx.x], sum);
-    atomicAdd(&ss[b * CO + threadIdx.x], sq);
+    const long long n = (long long)p.B * CO, e = (long long)b * CO + threadIdx.x;
+    p.part[(k0 * n + e) * p.nslots + slot] = sum;
+    p.part[((k0 + 1) * n + e) * p.nslots + slot] = sq;
   }
 }
 
@@ -241,23 +245,71 @@ __global__ void __launch_bounds__(NTHREADS) conv3_kernel(ConvArgs p) {
 
   const int gx = x0 + tx, gy = y0 + ty;
   const bool in_xy = gx < p.W && gy < p.H;
-  store_with_stats<T, CO>(acc, static_cast<T*>(p.out), p.s, p.ss, s_red, p, b, z0, gy, gx, in_xy);
+  // the block's slot among the nslots = gridDim.x * gridDim.y * nzt of its b
+  const int slot = ((blockIdx.z - b * nzt) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  store_with_stats<T, CO>(acc, static_cast<T*>(p.out), 0, slot, s_red, p, b, z0, gy, gx, in_xy);
   if constexpr (RES) {
     __syncthreads();  // s_red is reused
-    store_with_stats<T, CO>(racc, static_cast<T*>(p.res), p.rs, p.rss, s_red, p, b, z0, gy, gx,
+    store_with_stats<T, CO>(racc, static_cast<T*>(p.res), 2, slot, s_red, p, b, z0, gy, gx,
                             in_xy);
   }
 }
 
+constexpr int FINISH_THREADS = 128;
+
+// Whether group g (of nslots, taking tiles g, g + nslots, ... < ntiles)
+// took a tile of batch element b (tiles [b * tiles_per_b, (b + 1) *
+// tiles_per_b)); always with tiles_per_b == 0.
+__device__ __forceinline__ bool slot_written(int g, int b, int nslots, int tiles_per_b,
+                                             int ntiles) {
+  if (tiles_per_b == 0) return true;
+  const long long lo = (long long)b * tiles_per_b;
+  const long long hi = lo + tiles_per_b < ntiles ? lo + tiles_per_b : ntiles;
+  const long long first = g >= lo ? g : g + (lo - g + nslots - 1) / nslots * nslots;
+  return first < hi;
+}
+
+__global__ void __launch_bounds__(FINISH_THREADS)
+    stats_finish_kernel(const float* __restrict__ part, int nslots, int B, int co,
+                        int tiles_per_b, int ntiles, float* s, float* ss, float* rs, float* rss) {
+  __shared__ float warps[FINISH_THREADS / 32];
+  const int e = blockIdx.x;  // (k, element)
+  const int n_elem = B * co;
+  const int b = (e % n_elem) / co;
+  const float* src = part + (long long)e * nslots;
+  float v = 0.f;
+  for (int j = threadIdx.x; j < nslots; j += FINISH_THREADS)
+    if (slot_written(j, b, nslots, tiles_per_b, ntiles)) v += src[j];
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < FINISH_THREADS / 32; ++w) total += warps[w];
+    const int k = e / n_elem;
+    float* out = k == 0 ? s : (k == 1 ? ss : (k == 2 ? rs : rss));
+    out[e - k * n_elem] = total;
+  }
+}
+
 template <typename T, int MODE, bool RES, int CO>
-cudaError_t launch(const ConvArgs& p, cudaStream_t stream) {
+cudaError_t launch(ConvArgs p, cudaStream_t stream) {
   const int smem = smem_floats<RES, CO>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(conv3_kernel<T, MODE, RES, CO>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.W + TX - 1) / TX, (p.H + TY - 1) / TY, p.B * ((p.D + TZ - 1) / TZ));
+  const int nzt = (p.D + TZ - 1) / TZ;
+  const dim3 grid((p.W + TX - 1) / TX, (p.H + TY - 1) / TY, p.B * nzt);
+  const long long nslots = (long long)grid.x * grid.y * nzt;
+  if (nslots > p.nslots) return cudaErrorInvalidValue;  // the caller's partial-sum buffer
+  p.nslots = (int)nslots;
+  if (p.B == 0 || nslots == 0) return cudaSuccess;
   conv3_kernel<T, MODE, RES, CO><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return stats_finish(p.part, p.nslots, RES ? 4 : 2, p.B, CO, 0, 0, p.s, p.ss, p.rs, p.rss,
+                      stream);
 }
 
 template <typename T, int CO>
@@ -289,20 +341,34 @@ cudaError_t dispatch_co(int c_out, int mode, int residual, const ConvArgs& p, cu
 }
 
 }  // namespace
+
+cudaError_t stats_finish(const float* part, int nslots, int nk, int B, int co, int tiles_per_b,
+                         int ntiles, float* s, float* ss, float* rs, float* rss,
+                         cudaStream_t stream) {
+  if (nk * B * co == 0) return cudaSuccess;
+  stats_finish_kernel<<<nk * B * co, FINISH_THREADS, 0, stream>>>(part, nslots, B, co,
+                                                                  tiles_per_b, ntiles, s, ss, rs,
+                                                                  rss);
+  return cudaGetLastError();
+}
+
 }  // namespace medseg
 
 extern "C" {
 
-// Returns a cudaError_t value: 0 when the kernel was launched.
+// Returns a cudaError_t value: 0 when the kernels were launched (the conv,
+// then the statistics' finish). ``part``: room for [2 or 4][B][c_out]
+// [slots] fp32 partial sums, slots at least the conv's blocks per batch
+// element (ceil(W/16) * ceil(H/16) * ceil(D/2)).
 int medseg_conv3x3x3(int device, int bf16, int mode, int residual, int c_out, const void* x0,
                      const void* x1, const void* x2, const float* a0, const float* b0,
                      const float* a1, const float* b1, const void* w, const void* wres, void* out,
-                     float* s, float* ss, void* res, float* rs, float* rss, int B, int C, int Ch,
-                     int Cx, int D, int H, int W, void* stream) {
+                     float* s, float* ss, void* res, float* rs, float* rss, float* part,
+                     int slots, int B, int C, int Ch, int Cx, int D, int H, int W, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const medseg::ConvArgs p{x0, x1, x2, a0, b0, a1, b1, w, wres, out, s, ss, res, rs, rss,
-                           B,  C,  Ch, Cx, D,  H,  W};
+  const medseg::ConvArgs p{x0, x1, x2, a0, b0, a1, b1, w,  wres, out, s, ss, res, rs, rss,
+                           B,  C,  Ch, Cx, D,  H,  W, part, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   e = bf16 ? medseg::dispatch_co<__nv_bfloat16>(c_out, mode, residual, p, st)
            : medseg::dispatch_co<float>(c_out, mode, residual, p, st);

@@ -74,21 +74,35 @@
 //     tile is wider than it), so that the global stores are contiguous
 //     16-byte pieces of NCDHW x-rows; the fragments' sums and sums of
 //     squares (ragged voxels masked) are reduced by shuffles into per-warp
-//     slots and added into s / ss with one atomicAdd per group, channel and
-//     batch element (per-tile atomics serialise in L2). FLAT writes its fp32
+//     slots in shared memory. After the group's last tile of a batch
+//     element (its tiles only ever move to later ones; the register-staged
+//     kernel waits until the next halo has left the registers) the warps'
+//     slots are added in order into the group's own slot of the partial
+//     sums in global memory (a group whose tiles skip a batch element
+//     leaves its slot unwritten, and the finish skips it); ``stats_finish`` (common.cuh)
+//     then adds the groups' slots in a fixed order, one block per (sum,
+//     b, c), so the statistics are the same bits on every call (atomics
+//     added them in the order the groups finished). FLAT writes its fp32
 //     output from the fragments: 8 lanes cover 32 contiguous bytes of an
 //     x-row per channel.
 // Measured on the H100: PERF.md section 6 (times, spills, occupancy, the
 // ablations of medseg_torch/tools/ablate_conv_tc.py; MEDSEG_TC_ABLATE 1
-// drops the MMAs, 2 also the channels-last staging).
+// drops the MMAs, 2 also the channels-last staging; MEDSEG_TC_STATS 1
+// restores the atomic statistics (s, ss, rs, rss zeroed by
+// cudaMemsetAsync), 2 leaves the statistics out).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <initializer_list>
 
 #include "tc_common.cuh"
 
 #ifndef MEDSEG_TC_ABLATE
 #define MEDSEG_TC_ABLATE 0
+#endif
+#ifndef MEDSEG_TC_STATS
+#define MEDSEG_TC_STATS 0  // 0: fixed order; 1: atomics (ablation); 2: none (ablation)
 #endif
 
 namespace medseg {
@@ -130,7 +144,7 @@ struct TcConvArgs {
   const __nv_bfloat16* w;     // (C/16, 27, CO, 16)
   const __nv_bfloat16* wres;  // (C/16, CO, 16) or null
   void* out;                  // (B, CO, D, H, W): bf16, FLAT fp32
-  float* s;                   // (B, CO), zeroed by the caller
+  float* s;                   // (B, CO), written by stats_finish
   float* ss;
   __nv_bfloat16* res;
   float* rs;
@@ -138,6 +152,11 @@ struct TcConvArgs {
   int B, C, Cx, D, H, W;      // Cx: COMBINE's x channels, 1 or C/2
   int ntx, nty, ntz, ntiles;  // tiles along x, y, z; in all
   int resident;               // 1: every slice's weights in shared memory
+  // last, so that the fields above keep their offsets: inserted after rss,
+  // the two shift the ints and the COMBINE kernels spill (ptxas: 0 -> 168 B
+  // at C_out 16 with a 1-channel x; PERF.md section 6)
+  float* part;                // the groups' partial sums: [2 or 4][B][CO][nslots]
+  int nslots;                 // groups in the launch (the caller's room, until launch)
 };
 
 struct Tile {
@@ -239,16 +258,15 @@ __device__ __forceinline__ void zero(float (&acc)[ROWS_PER_WARP][N][4]) {
 // One tile's epilogue for one output (the conv, or the residual tap):
 // ``acc`` (fragment layout) -> s_out -> ``out``, OUT_CH channels at a time;
 // the tile's per-channel sums (voxels inside the volume only) added into
-// this warp's slots of ``stat`` ([sum, sq][warp][co]), which with ``flush``
-// are added into s / ss and zeroed. ``tid``: the thread within its group of
-// NT; ``sync``: the group's barrier. The caller has synchronised since s_out
-// was last read; s_out is read until the return.
+// this warp's slots of ``stat`` ([sum, sq][warp][co]), visible to the group
+// at the return. ``tid``: the thread within its group of NT; ``sync``: the
+// group's barrier. The caller has synchronised since s_out was last read;
+// s_out is read until the return.
 template <int CO, int OUT_CH, class Sync>
 __device__ __forceinline__ void finish_output(const float (&acc)[ROWS_PER_WARP][CO / 8][4],
                                               __nv_bfloat16* s_out, float* stat,
-                                              __nv_bfloat16* out, float* s, float* ss,
-                                              const TcConvArgs& p, const Tile& t, bool flush,
-                                              int tid, Sync sync) {
+                                              __nv_bfloat16* out, const TcConvArgs& p,
+                                              const Tile& t, int tid, Sync sync) {
   static_assert(CO % OUT_CH == 0 && OUT_CH % 8 == 0, "whole passes of 8-channel groups");
   const int lane = tid & 31, warp = tid >> 5;
   bool ok[ROWS_PER_WARP][2];
@@ -315,17 +333,39 @@ __device__ __forceinline__ void finish_output(const float (&acc)[ROWS_PER_WARP][
       }
     }
   }
-  if (flush && tid < CO) {
+}
+
+// The group's statistics of batch element ``b`` leave: per output (the
+// conv's sums k = 0, 1 from ``stat``; with RES the residual tap's k = 2, 3
+// from the next 2 x NWARP x CO floats) the warps' shared slots are added in
+// warp order, stored into the group's ``slot`` of the partial sums and
+// zeroed, by threads tid < CO. The caller synchronises the group before
+// (the warps' last adds) and after (the next adds). The register-staged
+// kernel calls it after the next step's halo has left the registers, so
+// that its registers do not add to the epilogue's.
+template <bool RES, int CO>
+__device__ __forceinline__ void flush_stats(float* stat, int b, int slot, const TcConvArgs& p,
+                                            int tid) {
+  if (tid >= CO) return;
+#pragma unroll
+  for (int k0 = 0; k0 < (RES ? 4 : 2); k0 += 2) {
+    float* st = stat + k0 * NWARP * CO;
     float sum = 0.f, sq = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) {
-      sum += stat[w * CO + tid];
-      sq += stat[(NWARP + w) * CO + tid];
-      stat[w * CO + tid] = 0.f;
-      stat[(NWARP + w) * CO + tid] = 0.f;
+      sum += st[w * CO + tid];
+      sq += st[(NWARP + w) * CO + tid];
+      st[w * CO + tid] = 0.f;
+      st[(NWARP + w) * CO + tid] = 0.f;
     }
-    atomicAdd(&s[t.b * CO + tid], sum);
-    atomicAdd(&ss[t.b * CO + tid], sq);
+    if constexpr (MEDSEG_TC_STATS == 1) {
+      atomicAdd(&(k0 == 0 ? p.s : p.rs)[b * CO + tid], sum);
+      atomicAdd(&(k0 == 0 ? p.ss : p.rss)[b * CO + tid], sq);
+    } else if constexpr (MEDSEG_TC_STATS == 0) {
+      float* part = p.part + ((k0 * p.B + b) * CO + tid) * p.nslots + slot;
+      part[0] = sum;
+      part[p.B * CO * p.nslots] = sq;  // sum k0 + 1
+    }
   }
 }
 
@@ -466,17 +506,16 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
                       tc::smem_u32(smem + L::W + (p.resident ? s : buf) * L::W_SLICE), vrow, lane,
                       acc, racc);
     if (s == ns - 1) {  // the tile is complete
-      if constexpr (STATS) {  // the statistics leave at the last tile of its b
-        const bool flush = !has_next || nt.b != cur.b;
+      if constexpr (STATS) {  // the statistics leave after the last tile of its b
         __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(
             smem + (L::OUT_IN_HALO ? buf * Halo::BYTES : L::OUT));
         if constexpr (L::OUT_IN_HALO) __syncthreads();  // every warp is done with this halo
-        finish_output<CO, CO>(acc, s_out, s_stat, static_cast<__nv_bfloat16*>(p.out), p.s,
-                              p.ss, p, cur, flush, threadIdx.x, sync);
+        finish_output<CO, CO>(acc, s_out, s_stat, static_cast<__nv_bfloat16*>(p.out), p, cur,
+                              threadIdx.x, sync);
         if constexpr (RES) {
           __syncthreads();  // s_out is reused
-          finish_output<CO, CO>(racc, s_out, s_stat + 2 * NWARP * CO, p.res, p.rs, p.rss, p,
-                                cur, flush, threadIdx.x, sync);
+          finish_output<CO, CO>(racc, s_out, s_stat + 2 * NWARP * CO, p.res, p, cur,
+                                threadIdx.x, sync);
         }
         zero(racc);
       } else {
@@ -488,11 +527,16 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
     store_halo(nt, ns_next, buf ^ 1);
     tc::cp_async_wait_all();
     __syncthreads();
+    if (STATS && ns_next == 0 && nt.b != cur.b) {  // cur was b's last tile; the next
+      flush_stats<RES, CO>(s_stat, cur.b, blockIdx.x, p, threadIdx.x);  // halo is in smem
+      __syncthreads();  // before the next tile's adds
+    }
     tile = next;
     s = ns_next;
     cur = nt;
     buf ^= 1;
   }
+  if (STATS) flush_stats<RES, CO>(s_stat, cur.b, blockIdx.x, p, threadIdx.x);  // the last tile
 }
 
 // A launch's plan, where the caller asks for it instead of the launch:
@@ -500,6 +544,35 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
 struct Plan {
   int per_sm, threads, smem, resident;
 };
+
+// Before a launch of ``groups`` tile groups in all: their slots of the
+// partial sums (``p.nslots`` holds the caller's room until this check), or
+// under MEDSEG_TC_STATS 1 the sums zeroed for the atomics.
+template <bool STATS, bool RES, int CO>
+cudaError_t set_slots(TcConvArgs& p, long long groups, cudaStream_t stream) {
+  if (!STATS) return cudaSuccess;
+  if (MEDSEG_TC_STATS == 1) {  // the atomics add into zeroed sums
+    for (float* t : {p.s, p.ss, p.rs, p.rss}) {
+      if (t == nullptr) continue;
+      const cudaError_t e = cudaMemsetAsync(t, 0, sizeof(float) * p.B * CO, stream);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+  if (MEDSEG_TC_STATS == 0 && groups > p.nslots) return cudaErrorInvalidValue;
+  p.nslots = (int)groups;
+  return cudaSuccess;
+}
+
+// After the launch: the statistics' fixed-order finish (common.cuh).
+template <bool STATS, bool RES, int CO>
+cudaError_t finish_stats(const TcConvArgs& p, cudaStream_t stream) {
+  if (!STATS || MEDSEG_TC_STATS != 0) return cudaSuccess;
+  // group g's tiles are g, g + nslots, ...: the finish reads slot g of b
+  // only where one of them lies in b's ntz * nty * ntx tiles
+  return stats_finish(p.part, p.nslots, RES ? 4 : 2, p.B, CO, p.ntz * p.nty * p.ntx, p.ntiles,
+                      p.s, p.ss, p.rs, p.rss, stream);
+}
 
 template <int MODE, bool RES, int CO, int XS = 0>
 cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream, Plan* plan) {
@@ -532,8 +605,13 @@ cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream, Plan* plan) {
   p.ntiles = (int)ntiles;
   if (p.ntiles == 0) return cudaSuccess;
   const int grid = p.ntiles < per_sm * sms ? p.ntiles : per_sm * sms;
+  constexpr bool STATS = MODE != FLAT;
+  e = set_slots<STATS, RES, CO>(p, grid, stream);
+  if (e != cudaSuccess) return e;
   conv_tc_kernel<MODE, RES, CO, XS><<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return finish_stats<STATS, RES, CO>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -666,15 +744,18 @@ __global__ void __launch_bounds__(Async<MODE, CO>::NG* NT, 1)
     if (s == ns - 1) {  // the tile is complete
       const Tile cur = tile_at(p, gid + k / ns * gstride);
       if constexpr (L::STATS) {  // the statistics leave at the last tile of its b
-        const bool flush = k + 1 == nsteps || tile_at(p, gid + (k / ns + 1) * gstride).b != cur.b;
         __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(rows);
         sync();  // every warp is done with the rows
-        finish_output<CO, L::OUT_CH>(acc, s_out, s_stat, static_cast<__nv_bfloat16*>(p.out), p.s,
-                                     p.ss, p, cur, flush, tid, sync);
+        finish_output<CO, L::OUT_CH>(acc, s_out, s_stat, static_cast<__nv_bfloat16*>(p.out), p,
+                                     cur, tid, sync);
         if constexpr (RES) {
           sync();  // s_out is reused
-          finish_output<CO, L::OUT_CH>(racc, s_out, s_stat + 2 * NWARP * CO, p.res, p.rs, p.rss,
-                                       p, cur, flush, tid, sync);
+          finish_output<CO, L::OUT_CH>(racc, s_out, s_stat + 2 * NWARP * CO, p.res, p, cur, tid,
+                                       sync);
+        }
+        if (k + 1 == nsteps || tile_at(p, gid + (k / ns + 1) * gstride).b != cur.b) {
+          flush_stats<RES, CO>(s_stat, cur.b, gid, p, tid);  // the adds are visible
+          sync();  // before the next tile's adds
         }
         zero(racc);
       } else {
@@ -722,8 +803,12 @@ cudaError_t launch_async(TcConvArgs p, int device, cudaStream_t stream, Plan* pl
   if (p.ntiles == 0) return cudaSuccess;
   const int blocks = (p.ntiles + L::NG - 1) / L::NG;
   const int grid = blocks < per_sm * sms ? blocks : per_sm * sms;
+  e = set_slots<L::STATS, L::RES, CO>(p, (long long)grid * L::NG, stream);
+  if (e != cudaSuccess) return e;
   conv_tc_async_kernel<MODE, CO><<<grid, L::NG * NT, smem, stream>>>(p);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return finish_stats<L::STATS, L::RES, CO>(p, stream);
 }
 
 template <int CO>
@@ -807,7 +892,12 @@ cudaError_t conv_tc(int device, int mode, int residual, int c_out, int staging,
 
 extern "C" {
 
-// Returns a cudaError_t value: 0 when the kernel was launched. mode 0:
+// Returns a cudaError_t value: 0 when the kernel (and, modes with
+// statistics, their fixed-order finish) was launched. ``part``: room for
+// [2, or 4 with the residual tap][B][c_out][slots] fp32 partial sums, slots
+// at least the launch's tile groups (blocks per SM x SMs x groups per
+// block, from medseg_conv_tc_plan, or fewer where the volume has fewer
+// tiles). mode 0:
 // PLAIN, 1: AFFINE (x0, a0, b0), C a multiple of 16 up to 64, c_out 16, 32
 // or 64; 2: CAT2 (x0, x1), 3: COMBINE (x0, x1, x2, a0, b0, a1, b1; Cx 1 or
 // C/2), both with the residual tap, C/2 a multiple of 16 (CAT2: C up to 128;
@@ -817,14 +907,14 @@ extern "C" {
 int medseg_conv_tc(int device, int mode, int residual, int c_out, int staging, const void* x0,
                    const void* x1, const void* x2, const float* a0, const float* b0,
                    const float* a1, const float* b1, const void* w, const void* wres, void* out,
-                   float* s, float* ss, void* res, float* rs, float* rss, int B, int C, int Cx,
-                   int D, int H, int W, void* stream) {
+                   float* s, float* ss, void* res, float* rs, float* rss, float* part, int slots,
+                   int B, int C, int Cx, int D, int H, int W, void* stream) {
   using bf = __nv_bfloat16;
   const medseg::TcConvArgs p{static_cast<const bf*>(x0), static_cast<const bf*>(x1),
                              static_cast<const bf*>(x2), a0, b0, a1, b1,
                              static_cast<const bf*>(w), static_cast<const bf*>(wres),
                              out, s, ss, static_cast<bf*>(res), rs, rss,
-                             B, C, Cx, D, H, W, 0, 0, 0, 0, 0};
+                             B, C, Cx, D, H, W, 0, 0, 0, 0, 0, part, slots};
   return (int)medseg::conv_tc(device, mode, residual, c_out, staging, p,
                               static_cast<cudaStream_t>(stream), nullptr);
 }

@@ -16,6 +16,9 @@ its decisions on the device from per-sample keys; here they are drawn per
 sample on the host from an explicit CPU ``torch.Generator`` (the train
 state's), so the step never waits on the device for them. The two packages'
 random streams differ; each transform is the JAX one at the same decision.
+In a data-parallel step every rank holds the same generator: each draws the
+decisions of the whole global batch and applies its own rows' (``rank``,
+``world``), so the global batch gets the decisions one process would give it.
 """
 
 from __future__ import annotations
@@ -95,16 +98,20 @@ def augment_batch(
     max_k: int = 3,
     shift_offsets: float = 0.1,
     shift_prob: float = 0.5,
+    rank: int = 0,
+    world: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference augmentation chain on the batch's device, with
-    per-sample decisions drawn from ``generator``."""
+    per-sample decisions drawn from ``generator``: those of rows ``rank * B
+    .. (rank + 1) * B`` of a global batch of ``world * B`` samples."""
     if rot_prob > 0 and image.shape[-3] != image.shape[-2]:
         raise ValueError(f"rot90 needs cubic D == H crops, got {tuple(image.shape[-3:])}")
+    bsz = image.shape[0]
     decisions = draw_decisions(
-        generator, image.shape[0], flip_prob=flip_prob, rot_prob=rot_prob, max_k=max_k,
+        generator, bsz * world, flip_prob=flip_prob, rot_prob=rot_prob, max_k=max_k,
         shift_offsets=shift_offsets, shift_prob=shift_prob,
     )
-    return apply_decisions(image, label, decisions)
+    return apply_decisions(image, label, decisions[rank * bsz : (rank + 1) * bsz])
 
 
 def scale_intensity_range_device(

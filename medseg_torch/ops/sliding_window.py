@@ -19,6 +19,11 @@ into its out-head kernel). The overlap-add goes into a ``(K, D, H, W)``
 accumulator in ``acc_dtype`` by tensor slicing. Grids that ``ppk_supported``
 (alias ``zrow_supported``) accepts can take the exact z-row walk instead
 (``ops/swi_zrow.py``).
+
+``sliding_window_inference_sharded`` spreads the window batches over the
+ranks of a data-parallel mesh (``medseg_torch.parallel``): the grid padded
+to a multiple of ``sw_batch`` x ranks, each rank's contiguous block of
+batches into its own fp32 accumulator, one all-reduce merges them.
 """
 
 from __future__ import annotations
@@ -143,13 +148,15 @@ zrow_supported = ppk_supported
 
 
 @lru_cache(maxsize=4)
-def _device_grid_cached(padded_shape, roi, overlap, mode, sigma_scale, sw_batch, device):
+def _device_grid_cached(padded_shape, roi, overlap, mode, sigma_scale, sw_batch, device,
+                        n_ranks=1):
     """Grid constants, uploaded once per (shape, spec, device): starts
-    padded to a multiple of ``sw_batch`` (host, (n_batches, sw_batch, 3)),
-    validity (device, (n_batches, sw_batch)), importance and 1/count."""
+    padded with zero-weight windows to a multiple of ``sw_batch`` x
+    ``n_ranks`` (host, (n_batches, sw_batch, 3)), validity (device,
+    (n_batches, sw_batch)), importance and 1/count."""
     starts = compute_window_starts(padded_shape, roi, overlap)
     n = starts.shape[0]
-    n_pad = (-n) % sw_batch
+    n_pad = (-n) % (sw_batch * n_ranks)
     starts = np.concatenate([starts, np.zeros((n_pad, 3), np.int32)], axis=0)
     valid = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
     n_batches = starts.shape[0] // sw_batch
@@ -191,6 +198,18 @@ def sliding_window_inference(
       (D, H, W, K) float32 blended logits at the original size, on ``device``.
     """
     device = torch.device(device)
+    vol, spatial, pads, padded, squeeze = pad_volume(volume, spec, device)
+    starts, valid, imp, inv_count = _device_grid_cached(
+        padded, tuple(spec.roi), spec.overlap, spec.mode, spec.sigma_scale, spec.sw_batch, device
+    )
+    acc = _walk_batches(vol, starts, valid, imp, inv_count, apply_fn, spec.roi, padded,
+                        apply_takes_weight, ACC_DTYPES[acc_dtype])
+    return crop_to_volume(acc, pads, spatial, n_classes, squeeze)
+
+
+def pad_volume(volume, spec: SlidingWindowSpec, device):
+    """(D, H, W, C) or (1, D, H, W, C) -> ((C, Dp, Hp, Wp) fp32 on
+    ``device``, spatial, pads, padded, squeeze)."""
     vol = torch.as_tensor(volume)
     squeeze = vol.ndim == 5
     if squeeze:
@@ -198,16 +217,19 @@ def sliding_window_inference(
             raise ValueError("sliding_window_inference expects a single volume")
         vol = vol[0]
     spatial = tuple(int(s) for s in vol.shape[:3])
-    roi = tuple(spec.roi)
-    pads = _pad_amounts(spatial, roi, spec.bucket_multiple)
+    pads = _pad_amounts(spatial, tuple(spec.roi), spec.bucket_multiple)
     padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
     vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
     if any(lo or hi for lo, hi in pads):
-        flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
-        vol = F.pad(vol, flat)
-    starts, valid, imp, inv_count = _device_grid_cached(
-        padded, roi, spec.overlap, spec.mode, spec.sigma_scale, spec.sw_batch, device
-    )
+        vol = F.pad(vol, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
+    return vol, spatial, pads, padded, squeeze
+
+
+def _walk_batches(vol, starts, valid, imp, inv_count, apply_fn, roi, padded,
+                  apply_takes_weight: bool, acc_dtype: torch.dtype) -> torch.Tensor:
+    """The flat walk over the batches ``starts`` (host, (n, sw_batch, 3))
+    with their validity (device, (n, sw_batch)): the (K', Dp, Hp, Wp)
+    accumulator of their weighted logits, added window by window."""
     rd, rh, rw = roi
 
     def window(t: torch.Tensor, s) -> torch.Tensor:
@@ -223,10 +245,56 @@ def sliding_window_inference(
         else:
             out = apply_fn(windows).float() * wgt
         if acc is None:
-            acc = torch.zeros((out.shape[1],) + padded, dtype=ACC_DTYPES[acc_dtype],
-                              device=device)
+            acc = torch.zeros((out.shape[1],) + padded, dtype=acc_dtype, device=vol.device)
         for s, o in zip(starts_b, out):
             window(acc, s).add_(o.to(acc.dtype))
+    return acc
+
+
+def sliding_window_inference_sharded(
+    volume,
+    apply_fn: Callable,
+    n_classes: int,
+    spec: SlidingWindowSpec,
+    mesh,
+    *,
+    apply_takes_weight: bool = False,
+) -> torch.Tensor:
+    """Whole-volume inference with the window grid sharded over the ranks
+    of ``mesh`` (counterpart of the JAX ``sliding_window_inference_sharded``).
+
+    The grid is padded with zero-weight windows to a multiple of
+    ``spec.sw_batch`` x ranks, as the JAX walk pads it; rank r walks the
+    r-th contiguous block of batches (the JAX ``P("data")`` layout) into an
+    fp32 accumulator of its own, and one all-reduce sums the ranks'
+    accumulators, so every rank returns the same logits. No halo exchange:
+    windows overlap only in the accumulator. Every rank runs every batch of
+    its block, padding windows included, so that each contributes an
+    accumulator of the same shape.
+
+    ``apply_fn`` and ``apply_takes_weight`` are those of
+    ``sliding_window_inference``: False is the JAX "ndhwc"/"ndchw" form
+    (logits, weighted here), True the "flatk" form the JAX ``Validator``
+    uses (the fused forward's out head multiplies by the weight, K padded
+    with ``class_pad``). The weight is importance x 1/count x validity per
+    window, as in the unsharded walk; the JAX walk divides by the count
+    after its psum instead, which is the same sum (the weight is linear).
+    At one rank the result is the unsharded walk's (fp32 accumulator) bit
+    for bit; at more, only the order of the fp32 additions differs.
+
+    Returns (D, H, W, K) fp32 logits on ``mesh.device``.
+    """
+    device = mesh.device
+    vol, spatial, pads, padded, squeeze = pad_volume(volume, spec, device)
+    starts, valid, imp, inv_count = _device_grid_cached(
+        padded, tuple(spec.roi), spec.overlap, spec.mode, spec.sigma_scale, spec.sw_batch, device,
+        mesh.data,
+    )
+    per_rank = starts.shape[0] // mesh.data
+    mine = slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
+    acc = _walk_batches(vol, starts[mine], valid[mine], imp, inv_count, apply_fn, spec.roi,
+                        padded, apply_takes_weight, torch.float32)
+    mesh.all_reduce_(acc)
     return crop_to_volume(acc, pads, spatial, n_classes, squeeze)
 
 

@@ -13,8 +13,13 @@ the windows' starts and the volume accumulator, ``(K_pad, Dp, Hp, Wp)`` in
 ``acc_dtype``, and ``apply_fn`` adds the weighted logits into it: the fused
 forward's out head does that in its kernel (K4, ``conv_of.outhead_row_of``),
 so no per-window logits and no fold pass exist. The JAX walk's TPU layouts
-(parity planes, z-packing), its W/H/D fold passes, its environment switches
-and its mesh-sharded variant are not part of the port.
+(parity planes, z-packing), its W/H/D fold passes and its environment
+switches are not part of the port.
+
+``sliding_window_inference_zrow_sharded`` splits the d-starts over the ranks
+of a data-parallel mesh (``medseg_torch.parallel``): each rank walks its
+block of d-starts into a full-depth accumulator of its own and one
+all-reduce merges them.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from medseg_torch.kernels.unetr_of import class_pad
 from medseg_torch.ops.sliding_window import (
@@ -32,13 +36,14 @@ from medseg_torch.ops.sliding_window import (
     SlidingWindowSpec,
     _count_map_cached,
     _importance,
-    _pad_amounts,
     crop_to_volume,
+    pad_volume,
     per_dim_window_starts,
     zrow_supported,
 )
 
-__all__ = ["sliding_window_inference_zrow", "zrow_supported"]
+__all__ = ["sliding_window_inference_zrow", "sliding_window_inference_zrow_sharded",
+           "zrow_supported"]
 
 TARGET_BATCH = 8  # windows per model batch the walk aims for (the JAX default)
 
@@ -91,30 +96,35 @@ def sliding_window_inference_zrow(
       (D, H, W, K) float32 blended logits at the original size, on ``device``.
     """
     device = torch.device(device)
+    vol, spatial, pads, padded, squeeze = _zrow_volume(volume, spec, device)
+    d_starts = per_dim_window_starts(padded, tuple(spec.roi), spec.overlap)[0]
+    acc = _walk_d_starts(vol, d_starts, apply_fn, n_classes, spec, padded, acc_dtype)
+    return crop_to_volume(acc, pads, spatial, n_classes, squeeze)
+
+
+def _zrow_volume(volume, spec: SlidingWindowSpec, device):
     vol = torch.as_tensor(volume)
-    squeeze = vol.ndim == 5
-    if squeeze:
-        if vol.shape[0] != 1:
-            raise ValueError("sliding_window_inference expects a single volume")
-        vol = vol[0]
-    spatial = tuple(int(s) for s in vol.shape[:3])
-    roi = tuple(spec.roi)
+    spatial = tuple(int(s) for s in vol.shape[-4:-1])
     if not zrow_supported(spatial, spec):
         raise ValueError("the z-row walk requires even roi/pads and even window starts; "
                          "use the flat walk (sliding_window_inference) for this grid")
-    pads = _pad_amounts(spatial, roi, spec.bucket_multiple)
-    padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
-    vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
-    if any(lo or hi for lo, hi in pads):
-        vol = F.pad(vol, [p for lo_hi in reversed(pads) for p in lo_hi])
-    d_starts, h_starts, w_starts = per_dim_window_starts(padded, roi, spec.overlap)
+    return pad_volume(vol, spec, device)
+
+
+def _walk_d_starts(vol, d_starts, apply_fn, n_classes: int, spec: SlidingWindowSpec, padded,
+                   acc_dtype: str) -> torch.Tensor:
+    """The z-row walk over ``d_starts`` into a (K_pad, Dp, Hp, Wp)
+    accumulator of ``acc_dtype``: per d-start, groups of ``h_group`` h-rows,
+    each with all its w-windows in one model batch."""
+    roi = tuple(spec.roi)
+    _, h_starts, w_starts = per_dim_window_starts(padded, roi, spec.overlap)
     h_group = _pick_h_group(len(h_starts), len(w_starts))
     imp, inv_count = _device_constants_cached(
-        padded, roi, spec.overlap, spec.mode, spec.sigma_scale, device
+        padded, roi, spec.overlap, spec.mode, spec.sigma_scale, vol.device
     )
     rd, rh, rw = roi
     acc = torch.zeros((class_pad(n_classes),) + padded, dtype=ACC_DTYPES[acc_dtype],
-                      device=device)
+                      device=vol.device)
     for d0 in d_starts:
         for rows in np.asarray(h_starts).reshape(-1, h_group):
             starts = torch.tensor([(d0, h0, w0) for w0 in w_starts for h0 in rows],
@@ -124,4 +134,40 @@ def sliding_window_inference_zrow(
             wgt = torch.stack([inv_count[d : d + rd, h : h + rh, w : w + rw]
                                for d, h, w in starts.tolist()])
             apply_fn(windows, (imp[None] * wgt)[:, None], starts, acc)
+    return acc
+
+
+def sliding_window_inference_zrow_sharded(
+    volume,
+    apply_fn: Callable,
+    n_classes: int,
+    spec: SlidingWindowSpec,
+    mesh,
+    *,
+    acc_dtype: str = "bf16",
+) -> torch.Tensor:
+    """The z-row walk with its d-starts split over the ranks of ``mesh``
+    (counterpart of the JAX ``sliding_window_inference_zrow_sharded``).
+
+    The d-starts are padded to a multiple of the ranks with invalid entries
+    (as the JAX walk pads them with validity 0), and rank r takes the r-th
+    contiguous block, skipping the invalid ones (a zero-weight slab adds
+    nothing). Each rank's ``apply_fn`` (K4 in the fused forward) adds its
+    windows into a full-depth local accumulator of ``acc_dtype``; the ranks'
+    accumulators are then summed by one all-reduce in fp32 for either
+    ``acc_dtype`` (the JAX walk psums a bf16 accumulator in bf16; here a
+    bf16 one is widened first, so the cross-rank sum rounds nowhere; gloo
+    and NCCL both reduce bf16 as well).
+    No halo exchange: slabs overlap only in the accumulator. At one rank
+    the result is the unsharded walk's bit for bit; at more, the order of
+    the additions where slabs of two ranks overlap differs.
+
+    Returns (D, H, W, K) fp32 logits on ``mesh.device``.
+    """
+    vol, spatial, pads, padded, squeeze = _zrow_volume(volume, spec, mesh.device)
+    d_starts = list(per_dim_window_starts(padded, tuple(spec.roi), spec.overlap)[0])
+    per_rank = -(-len(d_starts) // mesh.data)  # padded to a multiple of the ranks
+    mine = d_starts[mesh.rank * per_rank : (mesh.rank + 1) * per_rank]
+    acc = _walk_d_starts(vol, mine, apply_fn, n_classes, spec, padded, acc_dtype).float()
+    mesh.all_reduce_(acc)
     return crop_to_volume(acc, pads, spatial, n_classes, squeeze)

@@ -3,13 +3,19 @@ NVIDIA GPU:
 
     python -m medseg_torch.tools.ablate_conv_tc
 
-- builds the kernel library, then two variants of it in which
+- builds the kernel library, then four variants of it in which
   ``conv_tc.cu`` is compiled with ``MEDSEG_TC_ABLATE`` 1 (no MMAs: the
-  staging, the waits and the epilogue remain) and 2 (also no channels-last
-  staging: the halo copy alone, by cp.async or into registers), and
-  times K5, K9 and K1 through their wrappers on each (CUDA events, bf16, the
-  main path's shapes; the ablated outputs are wrong by design, only their
-  times are read);
+  staging, the waits and the epilogue remain), 2 (also no channels-last
+  staging: the halo copy alone, by cp.async or into registers), or with
+  ``MEDSEG_TC_STATS`` 1 (the statistics added by atomics into sums zeroed
+  by ``cudaMemsetAsync``, the design before the fixed-order finish) and 2
+  (no statistics at all), and
+  times K5, K9, K1 and K2 through their wrappers on each (CUDA events, bf16,
+  the main path's shapes; the outputs of "no MMA", "halo copy only" and "no
+  statistics" are wrong by design, only their times are read). Between the
+  library and the two statistics variants, a wrapper call's time shows what
+  the fixed-order statistics cost (the partial sums, their finish kernel)
+  against the atomics and against none;
 - prints ``nvcc -Xptxas -v`` of ``conv_tc.cu`` per instantiation
   (registers, spill stores);
 - prints each route's launch plan (``medseg_conv_tc_plan``): blocks and
@@ -33,7 +39,8 @@ import torch
 from medseg_torch.kernels import _build, conv_flat, conv_of
 from medseg_torch.kernels.kernel_check import time_ms
 
-VARIANTS = {0: "kernel", 1: "no MMA", 2: "halo copy only"}
+VARIANTS = {"no MMA": ["-DMEDSEG_TC_ABLATE=1"], "halo copy only": ["-DMEDSEG_TC_ABLATE=2"],
+            "atomic statistics": ["-DMEDSEG_TC_STATS=1"], "no statistics": ["-DMEDSEG_TC_STATS=2"]}
 # (name, wrapper, C, C_out, batch, edge, W): K5's C counts both streams
 CASES = [
     ("K5 (32+32)->32 @4x48^3", "cat2", 64, 32, 4, 48, 48),
@@ -42,6 +49,10 @@ CASES = [
     ("K9 128->64 @4x48^3", "flat", 128, 64, 4, 48, 48),
     ("K9 32->16 @4x96^3", "flat", 32, 16, 4, 96, 96),
     ("K1 16->16 affine @4x96^3 (register staging)", "affine_leaky", 16, 16, 4, 96, 96),
+    ("K1 16->16 affine @6x96^3 (config-4 batch)", "affine_leaky", 16, 16, 6, 96, 96),
+    ("K5 (32+32)->32 @6x48^3 (config-4 batch)", "cat2", 64, 32, 6, 48, 48),
+    ("K2 (16+16)->16 x1 @4x96^3", "combine", 32, 16, 4, 96, 96),
+    ("K2 (16+16)->16 x1 @6x96^3 (config-4 batch)", "combine", 32, 16, 6, 96, 96),
 ]
 # (label, mode, residual, C_out, staging, C, Cx) of each launch plan
 PLANS = [
@@ -63,7 +74,7 @@ def build_variants(source: str = "conv_tc.cu",
     """The library (``"kernel"``) and its variants, ``source`` compiled with
     each variant's extra nvcc flags (the other sources compiled once), and
     ptxas's report of ``source``, built in one parallel batch."""
-    variants = variants or {name: [f"-DMEDSEG_TC_ABLATE={n}"] for n, name in VARIANTS.items() if n}
+    variants = variants or VARIANTS
     paths = {"kernel": _build.library_path()}
     nvcc, flags, out = _build._nvcc(), _build.NVCC_FLAGS, _build.BUILD_DIR
     sources = sorted(_build.CSRC.glob("*.cu"))
@@ -155,6 +166,12 @@ def main() -> int:
             fn = conv_of.conv3x3x3_of_cat2
         elif mode == "flat":
             args, fn = (rand(bsz, c, *vol), wt), conv_flat.conv3x3x3_flat
+        elif mode == "combine":
+            half = c // 2
+            coeff = [(torch.rand((bsz, half), generator=g) + 0.5).to(dev) for _ in range(4)]
+            args = (rand(bsz, half, *vol), rand(bsz, half, *vol), rand(bsz, 1, *vol), *coeff, wt,
+                    rand(c_out, c, 1, 1, 1, scale=c ** -0.5))
+            fn = conv_of.conv3x3x3_of_combine
         else:
             a = (torch.rand((bsz, c), generator=g) + 0.5).to(dev)
             args = (rand(bsz, c, *vol), wt, a, rand(bsz, c, dt=torch.float32))
@@ -162,11 +179,13 @@ def main() -> int:
         inputs.append((name, fn, args))
     for variant, path in paths.items():
         _build._lib = _build.load(path)
+        conv_of.tc_plan.cache_clear()  # the variants' occupancy differs
         for name, fn, args in inputs:
             ms = time_ms(lambda: fn(*args))
             result["times"].append({"variant": variant, "case": name, "ms": ms})
             print(f"[ablate] {variant:15s} {name:46s} {ms:8.3f} ms [{card}]", flush=True)
     _build._lib = _build.load(paths["kernel"])
+    conv_of.tc_plan.cache_clear()
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "ablate_conv_tc.json").write_text(json.dumps(result, indent=1))

@@ -1,4 +1,4 @@
-"""K3, K4, K5, K7, K8 and K9 at the main path's shapes, timed on one tree of
+"""K1, K2, K3, K4, K5, K7, K8 and K9 at the main path's shapes, timed on one tree of
 the repository, so that two trees can be compared in one call on one card
 (parent, change, change, parent):
 
@@ -10,7 +10,8 @@ events (that tree's ``kernel_check.time_ms``: 10 calls after 2 warm calls),
 beside ``F.conv3d`` on the same inputs for the convs (contiguous and
 channels_last_3d; for K5 over the concatenated input, without its residual
 tap and statistics; fp32 with TF32 off); K3, K4, K7 and K8 have no library
-call. K7 and K8 (the config-5 case in bf16 and fp32, 2 classes, a ragged
+call (K1 and K2 beside ``F.conv3d`` too, K2 over its concatenated input).
+K7 and K8 (the config-5 case in bf16 and fp32, 2 classes, a ragged
 volume) are also timed by their device kernels' durations in the
 profiler's trace (``kernel_check.device_ms`` of the tree holding this file,
 for both trees), warm and with the 50 MB L2 flushed before each call, and
@@ -38,6 +39,15 @@ import torch.nn.functional as F
 BF, F32 = torch.bfloat16, torch.float32
 # (name, kernel, C, C_out, batch, edge, dtype): K5's C counts both streams
 CASES = [
+    ("K1 16->16 affine @4x96^3", "affine", 16, 16, 4, 96, BF),
+    ("K1 16->16 affine @6x96^3 (config-4 batch)", "affine", 16, 16, 6, 96, BF),
+    ("K1 BraTS 16->16 affine @4x128^3", "affine", 16, 16, 4, 128, BF),
+    ("K1 fp32 1->16 @4x96^3 (CUDA cores)", "plain", 1, 16, 4, 96, F32),
+    ("K2 (16+16)->16 x1 @4x96^3", "combine1", 32, 16, 4, 96, BF),
+    ("K2 (16+16)->16 x1 @6x96^3 (config-4 batch)", "combine1", 32, 16, 6, 96, BF),
+    ("K2 (16+16)->16 x16 @4x96^3", "combine", 32, 16, 4, 96, BF),
+    ("K2 BraTS (16+16)->16 x16 @4x128^3", "combine", 32, 16, 4, 128, BF),
+    ("K5 (32+32)->32 @6x48^3 (config-4 batch)", "cat2", 64, 32, 6, 48, BF),
     ("K5 (32+32)->32 @4x48^3", "cat2", 64, 32, 4, 48, BF),
     ("K5 (32+32)->32 BraTS @4x64^3", "cat2", 64, 32, 4, 64, BF),
     ("K5 (64+64)->64 @4x48^3", "cat2", 128, 64, 4, 48, BF),
@@ -78,9 +88,30 @@ L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
 def conv_case(conv_of, conv_flat, rand, kernel, c, c_out, bsz, edge):
-    """(wrapper, call, FLOP, bytes, library calls) of a K5 or K9 case."""
+    """(wrapper, call, FLOP, bytes, library calls) of a K1, K2, K5 or K9
+    case."""
     w = rand(c_out, c, 3, 3, 3, scale=(27 * c) ** -0.5)
-    if kernel == "cat2":
+    vol = (edge, edge, edge)
+    if kernel in ("affine", "plain"):
+        x = rand(bsz, c, *vol)
+        coeff = [rand(bsz, c, dt=F32).abs() + 0.5, rand(bsz, c, dt=F32)] if kernel == "affine" else []
+        wrapper = conv_of.conv3x3x3_of
+        call = lambda: wrapper(x, w, *coeff)  # noqa: E731
+        flops = 2.0 * 27 * c * c_out * bsz * edge**3
+        nbytes = (x.numel() + bsz * c_out * edge**3) * x.element_size()
+    elif kernel.startswith("combine"):
+        half = c // 2
+        up, y = rand(bsz, half, *vol), rand(bsz, half, *vol)
+        x1 = rand(bsz, 1 if kernel == "combine1" else half, *vol)
+        coeff = [rand(bsz, half, dt=F32).abs() + 0.5 if i % 2 == 0 else rand(bsz, half, dt=F32)
+                 for i in range(4)]
+        wres = rand(c_out, c, 1, 1, 1, scale=c ** -0.5)
+        wrapper = conv_of.conv3x3x3_of_combine
+        call = lambda: wrapper(up, y, x1, *coeff, w, wres)  # noqa: E731
+        x = torch.cat([up, y], dim=1)
+        flops = 2.0 * 28 * c * c_out * bsz * edge**3
+        nbytes = (up.numel() + y.numel() + x1.numel() + 2 * bsz * c_out * edge**3) * x.element_size()
+    elif kernel == "cat2":
         xa, xb = rand(bsz, c // 2, edge, edge, edge), rand(bsz, c // 2, edge, edge, edge)
         wres = rand(c_out, c, 1, 1, 1, scale=c ** -0.5)
         wrapper = conv_of.conv3x3x3_of_cat2
@@ -161,7 +192,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--kernels", default="K3,K4,K5,K7,K8,K9",
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5,K7,K8,K9",
                     help="the kernels whose cases run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -196,7 +227,7 @@ def main(argv=None) -> int:
             return (torch.randn(shape, generator=g) * scale).to(dev, dt)
 
         libs = (None, None)
-        if kernel in ("cat2", "flat"):
+        if kernel in ("cat2", "flat", "affine", "plain", "combine", "combine1"):
             wrapper, call, flops, nbytes, libs = conv_case(conv_of, conv_flat, rand, kernel, c,
                                                            width, batch, edge)
         else:

@@ -1,8 +1,11 @@
-"""Step timing and throughput counters (counterpart of ``StepTimer`` and
-``Throughput`` in ``medseg/utils/profiling.py``)."""
+"""Step timing, throughput counters and profiler capture (counterpart of
+``medseg/utils/profiling.py``): ``StepTimer``, ``Throughput``, and
+``trace(log_dir)``, a ``torch.profiler`` capture of the host and, where a
+card is present, the device."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -65,3 +68,18 @@ class Throughput:
         dt = self._stamps[-1][0] - self._stamps[0][0]
         items = sum(n for _, n in self._stamps[1:])
         return items / dt if dt > 0 else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the block (host activity, and
+    the CUDA kernels where a card is present) into ``log_dir`` as a Chrome
+    trace (``<host>_<pid>.<time>.pt.trace.json``), which TensorBoard's
+    profiler plugin and Perfetto open. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

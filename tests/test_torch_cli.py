@@ -91,8 +91,8 @@ def test_load_torch_checkpoint_rules(tmp_path):
     with pytest.raises(ValueError, match="shape mismatch"):
         load_torch_checkpoint(str(tmp_path / "shape.pth"), model)
     os.makedirs(tmp_path / "orbax")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="outside the port's scope"):
         load_torch_checkpoint(str(tmp_path / "orbax"), model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="outside the port's scope"):
         port_infer([make_dataset(tmp_path), "TinyCT", str(tmp_path / "orbax"),
                     str(tmp_path / "out"), "2", "--device", "cpu"] + TINY)

@@ -582,9 +582,13 @@ def emulate_async(mode, streams, weight, wres=None, blocks=3):
     slice's weights come from the resident slices or from buffer k % 2 of
     two, which step k - 1 filled with slice k % ns (the prologue buffer 0
     with slice 0); at a tile's last slice the output is written and its sums
-    (voxels inside the volume) added into the group's slots, which go to s /
-    ss at the group's last tile of each batch element. Returns (out, s,
-    ss[, res, rs, rss]) as ``_emulate_gemm``, FLAT ``(out,)``."""
+    (voxels inside the volume) added into the group's shared slots, which
+    are stored into the group's own slot of the partial sums after the
+    group's last tile of each batch element (at most once per group and
+    batch element; a group whose tiles skip a batch element leaves that slot
+    unwritten); ``stats_finish`` then adds each (sum, b, c)'s written slots
+    in slot order (``finish_stats``). Returns (out, s, ss[, res, rs, rss])
+    as ``_emulate_gemm``, FLAT ``(out,)``."""
     xs = [t.double().numpy() for t in streams]
     bsz, _, d, h, w = xs[0].shape
     c = sum(x.shape[1] for x in xs)
@@ -596,7 +600,8 @@ def emulate_async(mode, streams, weight, wres=None, blocks=3):
     ntiles, gstride = bsz * nz * ny * nx, blocks * groups
     n_out = 1 if wres is None else 2
     outs = [np.zeros((bsz, c_out, nz * TZ, ny * TY, nx * TX)) for _ in range(n_out)]
-    sums = [np.zeros((2, bsz, c_out)) for _ in range(n_out)]
+    part = np.full((2 * n_out, bsz, c_out, gstride), np.nan)  # csrc/common.cuh's layout
+    stored = np.zeros((gstride, bsz), bool)
     mask = np.zeros((nz * TZ, ny * TY, nx * TX))
     mask[:d, :h, :w] = 1.0
 
@@ -633,22 +638,62 @@ def emulate_async(mode, streams, weight, wres=None, blocks=3):
                 continue
             done.append(gid + k // ns * gstride)
             last_of_b = k + 1 == nsteps or tile_at(gid + (k // ns + 1) * gstride)[0] != bb
-            for out, acc, slot, tot in zip(outs, accs, slots, sums):
+            if last_of_b:
+                assert not stored[gid, bb], (gid, bb)  # one store per group and b
+                stored[gid, bb] = True
+            for i, (out, acc, slot) in enumerate(zip(outs, accs, slots)):
                 tile = acc.reshape(TZ, TY, TX, c_out).transpose(3, 0, 1, 2)
                 out[bb, :, z0 : z0 + TZ, y0 : y0 + TY, x0 : x0 + TX] = tile
                 inside = tile * mask[z0 : z0 + TZ, y0 : y0 + TY, x0 : x0 + TX]
                 slot += [inside.sum((1, 2, 3)), np.square(inside).sum((1, 2, 3))]
                 if last_of_b:
-                    tot[:, bb] += slot
+                    part[2 * i : 2 * i + 2, bb, :, gid] = slot
                     slot[:] = 0.0
                 acc[:] = 0.0
     assert sorted(done) == list(range(ntiles))  # every tile once
     if mode == "flat":
         return (outs[0][:, :, :d, :h, :w],)
+    written = np.array([[slot_written(g, bb, gstride, nz * ny * nx, ntiles)
+                         for g in range(gstride)] for bb in range(bsz)])
+    np.testing.assert_array_equal(written, stored.T)  # the finish reads what was written
+    sums = finish_stats(part, written)
     result = []
-    for out, tot in zip(outs, sums):
-        result += [out[:, :, :d, :h, :w], tot[0], tot[1]]
+    for i, out in enumerate(outs):
+        result += [out[:, :, :d, :h, :w], sums[2 * i], sums[2 * i + 1]]
     return tuple(result)
+
+
+FINISH_THREADS = 128  # csrc/conv_of.cu stats_finish_kernel
+
+
+def slot_written(g, b, nslots, tiles_per_b, ntiles):
+    """``stats_finish``'s test: whether group g (tiles g, g + nslots, ...
+    below ntiles) took one of batch element b's tiles."""
+    lo, hi = b * tiles_per_b, min((b + 1) * tiles_per_b, ntiles)
+    first = g if g >= lo else g + -(-(lo - g) // nslots) * nslots
+    return first < hi
+
+
+def finish_stats(part, written):
+    """``stats_finish``'s order: per (sum, b, c), thread t adds the written
+    slots among t, t + 128, ... in turn, the 32 lanes of a warp combine by
+    the xor shuffle tree (offsets 16, 8, 4, 2, 1; lane 0's value), then the
+    four warps' sums in warp order. No NaN (the sentinel of an unwritten
+    slot) may survive."""
+    nslots = part.shape[-1]
+    lanes = np.zeros(part.shape[:-1] + (FINISH_THREADS,))
+    for j in range(nslots):
+        for b in range(part.shape[1]):
+            if written[b, j]:
+                lanes[:, b, :, j % FINISH_THREADS] += part[:, b, :, j]
+    warps = lanes.reshape(part.shape[:-1] + (FINISH_THREADS // 32, 32))
+    for offset in (16, 8, 4, 2, 1):
+        warps = warps + warps[..., np.arange(32) ^ offset]
+    total = np.zeros(part.shape[:-1])
+    for w in range(FINISH_THREADS // 32):
+        total += warps[..., w, 0]
+    assert np.isfinite(total).all()
+    return total
 
 
 @pytest.mark.parametrize("c,c_out", [(128, 64), (64, 32)])
@@ -666,6 +711,24 @@ def test_cat2_async_walk_matches_pallas(c, c_out):
         h=h, w=w, out_dtype=jnp.float32, interpret=True,
     )
     _check_conv_outputs(emulate_async("cat2", (_t(xa), _t(xb)), _tw(k), _tw(k3)), ref, h, w)
+
+
+def test_cat2_async_walk_with_groups_that_skip_a_batch_element():
+    """More tile groups than one batch element's tiles (10 blocks of two
+    groups against 12 tiles per element): groups skip elements, whose slots
+    they never write; the finish reads only the written ones (the NaN
+    sentinel of the others never reaches the sums) and the statistics still
+    match ``conv3x3x3_of_cat2`` (interpret)."""
+    rng = np.random.default_rng(5)
+    xa, xb, k, k3 = _two_stream_inputs(rng, 64, 32, w=24)
+    h, w = xa.shape[2:4]
+    ref = conv3x3x3_of_cat2(
+        to_output_form(jnp.asarray(xa)), to_output_form(jnp.asarray(xb)),
+        weight_matrix(jnp.asarray(k), jnp.float32), res_weight(jnp.asarray(k3), jnp.float32),
+        h=h, w=w, out_dtype=jnp.float32, interpret=True,
+    )
+    got = emulate_async("cat2", (_t(xa), _t(xb)), _tw(k), _tw(k3), blocks=10)
+    _check_conv_outputs(got, ref, h, w)
 
 
 @pytest.mark.parametrize("c,c_out", [(128, 64), (32, 16)])

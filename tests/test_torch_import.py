@@ -48,6 +48,9 @@ def test_port_imports_no_jax_flax_or_triton():
         "medseg_torch.data.sampling", "medseg_torch.data.loader", "medseg_torch.utils.artifacts",
         "medseg_torch.cli.pretraining", "medseg_torch.tools.profile_pretrain",
         "medseg_torch.ops.augment", "medseg_torch.cli.segmentation",
+        "medseg_torch.parallel", "medseg_torch.parallel.mesh", "medseg_torch.parallel.runtime",
+        "medseg_torch.parallel.launch", "medseg_torch.utils.debug",
+        "medseg_torch.tools.dryrun_multichip", "medseg_torch.tools.probe_determinism",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"

@@ -13,7 +13,9 @@ and K9 also at 9x17x24, where W % 8 == 0 takes the asynchronous staging;
 K3's at a 3x5x9 volume and K4's on windows at x-starts that differ mod 8, as
 ``tests/test_torch_outhead_tc.py`` emulates them on the CPU; K7 and K8 at
 the ragged shapes of ``tests/test_torch_loss_vec.py``, on both routes, and
-K7's sums bitwise from call to call);
+K7's sums bitwise from call to call; K1, K2 and K5 on both routes bitwise
+from call to call, and a data-parallel step on an NCCL group of one rank
+bitwise equal to the step without a mesh);
 ``chip_smoke.py``
 repeats the comparisons at the serving path's, the training step's and the
 pretraining path's full shapes. Tolerances are those of
@@ -198,6 +200,58 @@ def test_loss_sums_are_bitwise_reproducible(device, dtype):
     first = [t.clone() for t in loss_of.dice_ce_sums(logits, labels)]
     second = loss_of.dice_ce_sums(logits, labels)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+CONV_KERNELS = (conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_combine)
+
+
+@DTYPES
+def test_conv_statistics_are_bitwise_reproducible(device, dtype):
+    """K1, K2 and K5 twice on the same inputs give the same bits, outputs and
+    statistics, on both routes (fp32: CUDA cores; bf16: tensor cores): the
+    blocks' partial sums are added in a fixed order (F-port2)."""
+    cases = [c for c in kernel_check.kernel_cases(device, dtype, batch=2, full=16)
+             if c.kernel in CONV_KERNELS]
+    assert {c.kernel for c in cases} == set(CONV_KERNELS)
+    for case in cases:
+        first = [t.clone() for t in case.kernel(*case.args, **case.kwargs)]
+        second = case.kernel(*case.args, **case.kwargs)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), case.name
+
+
+def test_nccl_world1_step_matches_the_step_without_a_mesh(device, tmp_path):
+    """A data-parallel step on an NCCL process group of one rank issues its
+    all-reduce (one flat buffer per step) and leaves the same parameters,
+    bit for bit, as the step without a mesh from the same weights."""
+    import torch.distributed as dist
+
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.engine.train import make_train_step
+    from medseg_torch.models.unetr import UNETR
+    from medseg_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device)
+        states = [create_train_state(
+            UNETR(in_channels=1, out_channels=4, img_size=(48, 48, 48), feature_size=16,
+                  hidden_size=48, mlp_dim=96, num_heads=4, num_layers=2,
+                  dtype=torch.bfloat16),
+            generator=torch.Generator().manual_seed(0), learning_rate=1e-3, weight_decay=1e-5,
+            device=device) for _ in range(2)]
+        g = torch.Generator().manual_seed(1)
+        batch = {"image": torch.randn((2, 1, 48, 48, 48), generator=g).to(device),
+                 "label": torch.randint(0, 4, (2, 48, 48, 48), generator=g).to(device)}
+        for state, step_mesh in zip(states, (mesh, None)):
+            step = make_train_step(state.model, task="ct", mesh=step_mesh)
+            for _ in range(3):
+                step(state, batch)
+        assert mesh.backend == "nccl" and mesh.collectives == 3
+        for p, q in zip(states[0].model.parameters(), states[1].model.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        dist.destroy_process_group()
 
 
 TC_VOLUME = (9, 17, 18)  # ragged against the tensor-core kernels' 2x8x16 voxel tile

@@ -168,5 +168,5 @@ def test_restore_freshest_and_metadata(tmp_path):
 
 def test_orbax_directory_still_raises(tmp_path):
     os.makedirs(tmp_path / "orbax" / "best")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="outside the port's scope"):
         load_torch_checkpoint(str(tmp_path / "orbax"), UNETR(**TINY_MODEL))

@@ -14,8 +14,11 @@ final metrics against the JAX package's CLI (``medseg.cli.segmentation``).
   a newer "best" wins over an older "latest"; the CLI resumes from the
   fresher checkpoint and a resumed run does not demote the best.
 - A BraTS-layout run (four channels, sigmoid DiceCE) of one step.
-- ``--data-parallel`` with one device runs single-device; the JAX
-  package's multi-process variables raise.
+- ``--data-parallel`` with one device runs single-device; each of the
+  multi-process variables alone is an incomplete configuration and raises;
+  ``MEDSEG_NUM_PROCESSES=1`` runs one process; a rank without
+  ``--data-parallel`` keeps no mesh (the two-process runs are in
+  ``tests/test_torch_parallel.py``).
 - A port checkpoint directory as PRETRAINED: the output directory takes the
   pretrained name's suffix, the weights load and the CLI's learning rate
   stays.
@@ -236,26 +239,53 @@ def test_brats_layout_one_step(tmp_path):
     assert np.load(os.path.join(fold0, "final_hausdorff_per_class.npy")).shape == (4,)
 
 
-def test_data_parallel_on_one_device_and_multi_process_raises(tmp_path, monkeypatch):
+def test_data_parallel_on_one_device_runs_single_device(tmp_path):
     data_dir = make_smoke_dataset(tmp_path)
     out_root = str(tmp_path / "results")
     results = seg.main(_smoke_argv(data_dir, out_root, 1, ["--data-parallel"]))
     assert np.isfinite(results[0]["dice"])
     log = open(glob.glob(os.path.join(out_root, "SmokeCT_0", "*_logger.txt"))[0]).read()
     assert "running single-device" in log
-    for name, value in (("MEDSEG_COORDINATOR", "localhost:1234"), ("MEDSEG_DISTRIBUTED", "1"),
-                        ("MEDSEG_NUM_PROCESSES", "2"), ("MEDSEG_PROCESS_ID", "1")):
-        with monkeypatch.context() as m:
-            m.setenv(name, value)
-            with pytest.raises(NotImplementedError, match="one process"):
-                seg.main(_smoke_argv(data_dir, str(tmp_path / "none"), 1))
-    monkeypatch.setenv("MEDSEG_NUM_PROCESSES", "1")  # a single-process configuration
+
+
+@pytest.mark.parametrize("name,value", [
+    ("MEDSEG_COORDINATOR", "localhost:1234"), ("MEDSEG_DISTRIBUTED", "1"),
+    ("MEDSEG_NUM_PROCESSES", "2"), ("MEDSEG_PROCESS_ID", "1"),
+])
+def test_incomplete_multi_process_configuration_raises(tmp_path, monkeypatch, name, value):
+    """Each of the JAX package's multi-process variables alone is a
+    configuration the CLI cannot join: it names what is missing before it
+    touches the network or the data (the two-process runs are in
+    ``tests/test_torch_parallel.py``)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv(name, value)
+    with pytest.raises(ValueError, match="multi-process configuration incomplete"):
+        seg.main(_smoke_argv(str(tmp_path / "none"), str(tmp_path / "none"), 1))
+    assert not torch.distributed.is_initialized()
+
+
+def test_single_process_configuration_runs_one_process(tmp_path, monkeypatch):
+    """``MEDSEG_NUM_PROCESSES=1`` (with a coordinator) is one process: no
+    process group, one log without a rank suffix."""
+    data_dir = make_smoke_dataset(tmp_path)
+    out_root = str(tmp_path / "results")
+    monkeypatch.setenv("MEDSEG_NUM_PROCESSES", "1")
     monkeypatch.setenv("MEDSEG_COORDINATOR", "localhost:1234")
-    seg.check_single_process()
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    args = seg.build_parser().parse_args(_smoke_argv(data_dir, out_root, 1, ["--data-parallel"]))
-    with pytest.raises(NotImplementedError, match="2 visible cards"):
-        seg.check_single_device(args, torch.device("cuda"), None)
+    results = seg.main(_smoke_argv(data_dir, out_root, 1))
+    assert np.isfinite(results[0]["dice"]) and not torch.distributed.is_initialized()
+    logs = glob.glob(os.path.join(out_root, "SmokeCT_0", "*_logger.txt"))
+    assert len(logs) == 1 and "_host" not in logs[0]
+
+
+def test_multi_process_without_data_parallel_trains_each_slice(tmp_path, monkeypatch):
+    """A rank of a multi-process run without ``--data-parallel`` keeps no
+    mesh and says so (as the JAX CLI, each rank trains on its slice)."""
+    monkeypatch.setattr(seg, "process_info", lambda: (1, 2))
+    logger = seg.RunLogger(str(tmp_path), "log")
+    args = seg.build_parser().parse_args(_smoke_argv("d", "o", 1))
+    assert seg.data_parallel_mesh(args, torch.device("cpu"), logger) is None
+    assert "trains on its slice" in open(logger.text_path).read()
 
 
 def test_pretrained_checkpoint_directory(tmp_path):
