@@ -19,7 +19,14 @@ and on BraTS. Phases, each raising on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; TF32 off
    for every fp32 reference;
-2. build: the kernel library, timed;
+2. build: the kernel library (nvcc) and, beside it, the native host library
+   (g++: gunzip and the Spacing resamplers), timed, with the entry points it
+   carries; then native: each of its six entry points against its plain
+   numpy version on a BTCV-shaped 512x512x147 int16 .nii.gz volume and its
+   label at 0.76x0.76x3 mm respaced to 1.5x1.5x2 mm (gunzip byte-exact,
+   trilinear 1e-5, nearest equal but at .5 ties, scale 1e-5, z-score 1e-4,
+   the box exact), timed on the host with its CPU model and core count, and
+   the chain's resample of 4 volumes serially and in 4 threads at once;
 3. every serving kernel against its plain PyTorch version at the path's
    shapes, fp32 and bf16 (K4 also with fp32 and bf16 accumulators, and on a
    row whose last window starts off 8 voxels), then at the BraTS window
@@ -72,7 +79,8 @@ and on BraTS. Phases, each raising on failure:
     gradients against the fp32 twin, ms/step;
 13. pretrain-cli: ``medseg_torch.cli.pretraining`` on four synthetic CT
     volumes (one fold, one epoch per stage, a checkpoint every 2 steps):
-    both stages' checkpoints and loss-vs-time artifacts, steps/s;
+    both stages' checkpoints and loss-vs-time artifacts, steps/s, the host
+    chain's gunzip and resampling through the native library (calls counted);
 14. seg-cli: ``medseg_torch.cli.segmentation`` on a synthetic abdomenCT
     directory (four 128x128x96 CT volumes at 1.5x1.5x2 mm, 14 classes, one
     box-shaped organ per class): ``train`` (one fold of two, 4 steps of one
@@ -83,7 +91,8 @@ and on BraTS. Phases, each raising on failure:
     figures (or their .npy) on disk; K1, K6, K7 and K8 in the steps, K2, K5
     and K4 on the tensor cores in the final evaluation (z-row walk); train
     steps/s after the first, seconds per validation volume, the final
-    evaluation's seconds and Hausdorff's share;
+    evaluation's seconds and Hausdorff's share; the host chain's resampling
+    through the native library (calls counted);
 15. mri-train-kernel: the BraTS step's C_in = 4 kernels (K1 4->16 and K6 at
     C = 4 @4x128^3, CUDA cores) against their plain versions, timed;
 16. seg-cli-mri: the same CLI on a synthetic Task01_BrainTumour directory
@@ -133,6 +142,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -223,10 +233,37 @@ DP_STEPS = 5  # timed data-parallel steps after a warm one (phase 18)
 DP_LR = 1e-4
 FLAT_SHARDED_VOLUME = (128, 128, 97)  # an odd grid: the sharded flat walk (K3)
 DP2_TIMEOUT = 420  # seconds for each two-process run of phase 19
+# the native phase: a BTCV-shaped CT volume (512 x 512 slices, 147 of them at
+# 0.76 x 0.76 x 3 mm, int16 in a .nii.gz) and its label, respaced to 1.5 x 1.5
+# x 2 mm; the library's resamplers run in as many threads at once as the
+# segmentation CLI's loader has
+NATIVE_VOLUME, NATIVE_PIXDIM, NATIVE_TARGET = (512, 512, 147), (0.76, 0.76, 3.0), (1.5, 1.5, 2.0)
+NATIVE_THREADS = 4
+NATIVE_CALLS = ("inflate_gzip", "trilinear_resample", "nearest_resample")
+NATIVE_ENTRY_POINTS = ("msn_inflate_gzip", "msn_trilinear_resample", "msn_nearest_resample",
+                       "msn_scale_intensity", "msn_znorm_nonzero", "msn_foreground_bbox")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_cpu() -> tuple[str, int]:
+    """The host CPU's model name (where the machine hides it, its vendor,
+    family and model numbers) and its logical core count."""
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model in ("", "unknown"):
+        model = (f"unknown model name ({fields.get('vendor_id', '?')} family "
+                 f"{fields.get('cpu family', '?')} model {fields.get('model', '?')})")
+    return model, os.cpu_count() or 1
 
 
 def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -243,17 +280,212 @@ def phase_device() -> tuple[torch.device, str]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log(card)  # as nvidia-smi prints it: name, power limit
-    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    cpu, cores = host_cpu()
+    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}; host CPU {cpu}, "
+        f"{cores} cores")
     return torch.device("cuda", 0), card
 
 
 def phase_build(card: str) -> None:
+    """The CUDA library (nvcc) and, in a thread beside it, the native host
+    library (g++)."""
+    from medseg_torch import native
     from medseg_torch.kernels import _build
 
+    failed: list = []
+
+    def build_native():
+        try:
+            native.load()
+        except BaseException as e:  # raised below, after the nvcc build
+            failed.append(e)
+
     t0 = time.perf_counter()
+    host = threading.Thread(target=build_native)
+    host.start()
     _build.lib()
+    host.join()
+    if failed:
+        raise failed[0]
+    lib = native.load()
+    carried = [name for name in NATIVE_ENTRY_POINTS if hasattr(lib, name)]
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc: "
-        f"{'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'}) [{card}]")
+        f"{'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'}; "
+        f"g++: {'cached' if native.build_seconds is None else f'{native.build_seconds:.1f} s'}; "
+        f"native entry points {carried}) [{card}]")
+
+
+class NativeCalls:
+    """Counts the calls into the native library's gunzip and resamplers for
+    one run (the data chain calls them through the module's attributes)."""
+
+    def __enter__(self):
+        from medseg_torch import native
+
+        self.native, self.counts, self._saved = native, dict.fromkeys(NATIVE_CALLS, 0), {}
+        lock = threading.Lock()
+        for name in NATIVE_CALLS:
+            fn = self._saved[name] = getattr(native, name)
+
+            def counted(*args, _fn=fn, _name=name):
+                with lock:
+                    self.counts[_name] += 1
+                return _fn(*args)
+            setattr(native, name, counted)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self._saved.items():
+            setattr(self.native, name, fn)
+
+    def require(self, names, label: str) -> None:
+        missing = [name for name in names if not self.counts[name]]
+        if missing:
+            raise RuntimeError(f"{label}: the data chain did not call the native library's "
+                               f"{missing}: {self.counts}")
+
+
+def write_btcv_volume(root: str, rng: np.random.Generator) -> dict:
+    """A BTCV-shaped CT volume (int16 HU: air, a body ellipse of soft tissue,
+    13 box-shaped organs) and its uint8 label, as ``.nii.gz`` at
+    NATIVE_PIXDIM."""
+    from medseg_torch.data.nifti import write_nifti
+
+    x, y, z = NATIVE_VOLUME
+    gx, gy = np.meshgrid(np.arange(x), np.arange(y), indexing="ij")
+    body = ((gx - x / 2) / (0.42 * x)) ** 2 + ((gy - y / 2) / (0.34 * y)) ** 2 < 1.0
+    image = np.full(NATIVE_VOLUME, -1000, np.int16)
+    image[body] = 40
+    image += rng.normal(0.0, 20.0, size=NATIVE_VOLUME).astype(np.int16)
+    label = np.zeros(NATIVE_VOLUME, np.uint8)
+    for k in range(1, N_CLASSES):  # inside the body's middle 40% in x and y
+        size = [rng.integers(d // 25, d // 8) for d in (x, y, z)]
+        lo = [rng.integers(int(0.3 * d), int(0.7 * d) - s) for d, s in zip((x, y, z), size)]
+        box = tuple(slice(a, a + s) for a, s in zip(lo, size))
+        label[box] = k
+        image[box] += np.int16(10 * k)
+    affine = np.diag(list(NATIVE_PIXDIM) + [1.0])
+    paths = {"image": os.path.join(root, "btcv.nii.gz"), "label": os.path.join(root, "btcv_label.nii.gz")}
+    write_nifti(paths["image"], image, affine)
+    write_nifti(paths["label"], label, affine)
+    return paths
+
+
+def clock(fn, *args, warm: bool = False):
+    """``fn(*args)`` and its seconds; ``warm``: of a second call, after one
+    that pages in its buffers and starts its thread team."""
+    if warm:
+        fn(*args)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def phase_native(card: str) -> None:
+    """Each of the native library's six entry points against its plain numpy
+    version on a BTCV-shaped volume, timed on the host; then the Spacing
+    resample of NATIVE_THREADS volumes one after another and in as many
+    threads at once (each call opens its own OpenMP team)."""
+    import gzip
+    import struct
+    from concurrent.futures import ThreadPoolExecutor
+
+    from medseg_torch import native
+    from medseg_torch.data import transforms as T
+
+    cpu, cores = host_cpu()
+    where = f"host CPU {cpu}, {cores} cores [{card}]"
+    rows, failed = [], []
+
+    def row(name, lib_s, plain_s, err, ok, detail=""):
+        rows.append(name)
+        log(f"[native] {name:20s} library {1e3 * lib_s:9.1f} ms plain {1e3 * plain_s:9.1f} ms "
+            f"({plain_s / lib_s:6.1f}x) max_abs_err {err:.3e}{detail} {'ok' if ok else 'FAIL'} "
+            f"[{where}]")
+        if not ok:
+            failed.append(name)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, write_s = clock(write_btcv_volume, tmp, np.random.default_rng(10))
+        with open(paths["image"], "rb") as f:
+            blob = f.read()
+        size = struct.unpack("<I", blob[-4:])[0]
+        raw, lib_s = clock(native.inflate_gzip, blob, size, warm=True)
+        want, plain_s = clock(gzip.decompress, blob)
+        row("inflate_gzip", lib_s, plain_s, 0.0 if raw == want else float("inf"), raw == want,
+            f" ({len(blob) / 2**20:.1f} MiB -> {size / 2**20:.1f} MiB)")
+        sample, load_s = clock(T.load, dict(paths))
+    image, label = sample["image"], sample["label"]
+    affine = sample["image_affine"]
+    target = T._zoom_affine(affine, np.asarray(NATIVE_TARGET))
+    shape, offset = T._compute_shape_offset(np.array(image.shape[:3]), affine, target)
+    target[:3, 3] = offset
+    m = (np.linalg.inv(affine) @ target)[:3]
+
+    tri, lib_s = clock(T._native_resample, image, m, shape, "trilinear", warm=True)
+    want, plain_s = clock(T.plain_resample, image, m, shape, "trilinear")
+    err = float(np.abs(tri - want).max())
+    row("trilinear_resample", lib_s, plain_s, err,
+        tri.shape == want.shape and np.allclose(tri, want, rtol=1e-5, atol=1e-5),
+        f" ({'x'.join(map(str, image.shape))} -> {'x'.join(map(str, shape))})")
+
+    near, lib_s = clock(T._native_resample, label, m, shape, "nearest", warm=True)
+    want, plain_s = clock(T.plain_resample, label, m, shape, "nearest")
+    # ties (a coordinate on .5 to within the rounding of its sum) may round
+    # either way: both are the nearest voxel; everywhere else they agree
+    axes = [m[a, 0] * np.arange(shape[0])[:, None, None] + m[a, 1] * np.arange(shape[1])[None, :, None]
+            + m[a, 2] * np.arange(shape[2])[None, None, :] + m[a, 3] for a in range(3)]
+    ties = np.zeros(tuple(shape), bool)
+    for c in axes:
+        ties |= np.abs(c - np.floor(c) - 0.5) < 1e-9
+    differ = near != want
+    ok = (set(np.unique(near)) <= set(np.unique(label)) and not (differ & ~ties).any())
+    row("nearest_resample", lib_s, plain_s, float(np.abs(near - want).max()), ok,
+        f" ({int(differ.sum())} voxels differ, all at .5 ties; {int(ties.sum())} ties)")
+
+    scaled = tri.copy()
+    clock(native.scale_intensity, tri.copy(), -175.0, 250.0, 0.0, 1.0, True)  # warm
+    _, lib_s = clock(native.scale_intensity, scaled, -175.0, 250.0, 0.0, 1.0, True)
+    want, plain_s = clock(lambda: T.scale_intensity_range({"image": tri})["image"])
+    row("scale_intensity", lib_s, plain_s, float(np.abs(scaled - want).max()),
+        np.allclose(scaled, want, rtol=1e-5, atol=1e-6))
+
+    normed = scaled.copy()
+    clock(native.znorm_nonzero, scaled.copy())  # warm
+    _, lib_s = clock(native.znorm_nonzero, normed)
+    want, plain_s = clock(T._znorm, scaled.copy(), True)
+    row("znorm_nonzero", lib_s, plain_s, float(np.abs(normed - want).max()),
+        np.allclose(normed, want, rtol=1e-4, atol=1e-5))
+
+    box, lib_s = clock(native.foreground_bbox, scaled, warm=True)
+
+    def plain_box(x):
+        idx = np.nonzero(x > 0)
+        return np.array([v for i in idx for v in (i.min(), i.max() + 1)], np.int64)
+    want, plain_s = clock(plain_box, scaled)
+    row("foreground_bbox", lib_s, plain_s, float(np.abs(box - want).max()),
+        box is not None and np.array_equal(box, want), f" (box {box.tolist()})")
+    if rows != ["inflate_gzip", "trilinear_resample", "nearest_resample", "scale_intensity",
+                "znorm_nonzero", "foreground_bbox"]:
+        raise RuntimeError(f"native: entry points checked {rows}")
+    if failed:
+        raise RuntimeError(f"native: the library disagrees with its plain versions: {failed}")
+
+    # the chain's Spacing resample (image trilinear, label nearest): alone,
+    # NATIVE_THREADS one after another, and NATIVE_THREADS in threads at once
+    def respace():
+        return T.respace(dict(sample), pixdim=NATIVE_TARGET)
+    out, one_s = clock(respace)
+    if not (np.array_equal(out["image"], tri) and np.array_equal(out["label"], near)):
+        raise RuntimeError("native: respace does not return its resamplers' outputs")
+    _, serial_s = clock(lambda: [respace() for _ in range(NATIVE_THREADS)])
+    with ThreadPoolExecutor(NATIVE_THREADS) as pool:
+        _, threaded_s = clock(lambda: list(pool.map(lambda _: respace(), range(NATIVE_THREADS))))
+    log(f"[native] the chain: load (gunzip and decode of image and label) {load_s:.3f} s; respace "
+        f"(image trilinear + label nearest) {one_s:.3f} s alone, {NATIVE_THREADS} volumes "
+        f"{serial_s:.3f} s one after another, {threaded_s:.3f} s in {NATIVE_THREADS} threads at "
+        f"once ({serial_s / threaded_s:.2f}x; each call opens an OpenMP team of "
+        f"{cores} threads); writing the volume {write_s:.1f} s [{where}]")
 
 
 def all_launches() -> dict:
@@ -912,7 +1144,8 @@ def phase_pretrain_cli(device, card: str) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         try:
-            out_dirs = pretraining.main(argv)
+            with NativeCalls() as calls:
+                out_dirs = pretraining.main(argv)
         finally:
             pretraining.plot_loss_vs_time = plot
         torch.cuda.synchronize()
@@ -935,7 +1168,9 @@ def phase_pretrain_cli(device, card: str) -> dict:
     log(f"[pretrain-cli] medseg_torch.cli.pretraining --bf16 on 2 of 4 CT volumes "
         f"{'x'.join(map(str, CLI_PRETRAIN_VOLUME))} at 1.5x1.5x2 mm (one fold, one epoch per stage): "
         f"{steps} steps in {seconds:.2f} s end to end, {steps / seconds:.3f} steps/s (host "
-        f"preprocessing, both stages, checkpoints) [{card}]; launches {launches}")
+        f"preprocessing through the native library, both stages, checkpoints) [{card}]; native "
+        f"calls {calls.counts}; launches {launches}")
+    calls.require(NATIVE_CALLS[:2], "pretraining CLI")
     require_launched(launches, RECON_KERNELS, "pretraining CLI")
     return launches
 
@@ -1149,7 +1384,7 @@ def phase_seg_cli(device, card: str) -> dict:
                 "--save-latest-every", "2", "--device-augment", "--no-progress"]
         reset_launches()
         t0 = time.perf_counter()
-        with SegCliProbe(segmentation) as train:
+        with SegCliProbe(segmentation) as train, NativeCalls() as calls:
             result = segmentation.main(argv)[0]
         train_seconds = time.perf_counter() - t0
         argv[5] = "eval"
@@ -1185,12 +1420,14 @@ def phase_seg_cli(device, card: str) -> dict:
         f"{['%.3f' % v for v in infer]} s per call; walks {walks}); final evaluation "
         f"{final['seconds']:.3f} s for {final['volumes']} volumes, Hausdorff "
         f"{final['hausdorff_seconds']:.3f} s ({100 * final['hausdorff_seconds'] / final['seconds']:.1f}%); "
-        f"CLI train run {train_seconds:.1f} s end to end [{card}]")
+        f"CLI train run {train_seconds:.1f} s end to end, the host chain through the native "
+        f"library (calls {calls.counts}) [{card}]")
     log(f"[seg-cli] final: dice {result['dice']:.5f} precision {result['precision']:.5f} recall "
         f"{result['recall']:.5f} hausdorff {result['hausdorff']:.3f}; eval mode's differences "
         f"{diffs} (expected 0 each); figures {figures}; "
         f"eval-mode final evaluation {evaluation.validations[0]['seconds']:.3f} s; launches "
         f"{launches}")
+    calls.require(NATIVE_CALLS[1:], "seg-cli")
     require_launched(launches, TRAIN_KERNELS + ZROW_KERNELS, "seg-cli")
     require_launched(train.step_launches(), TRAIN_KERNELS, "seg-cli train step")
     require_tc_only(final["launches"], "the seg-cli final evaluation", ZROW_TC_ONLY)
@@ -1431,6 +1668,7 @@ def main() -> int:
     t_start = time.perf_counter()
     device, card = phase_device()
     phase_build(card)
+    phase_native(card)
     table: dict = {}
     phase_kernels(device, card, table, kernel_check.kernel_cases, "kernel",
                   tc_required=SERVING_TC_REQUIRED)

@@ -7,7 +7,9 @@ uses it, with its crop-list collation rule: a dataset item that is a list of
 4 crops gives a batch of 4, and the pretraining's ``batch_size=2`` with 2
 crops gives 4 (``[vol1_crop1, vol1_crop2, vol2_crop1, vol2_crop2]``).
 
-Worker threads (the decode and numpy resampling release the GIL), a bounded
+Worker threads (the native library's gunzip and resampling,
+``medseg_torch.native``, release the GIL for each call; numpy's resampling
+would not), a bounded
 prefetch queue so that preprocessing overlaps the device's work, an
 epoch-seeded shuffle (``np.random.default_rng((seed, epoch))``, the JAX
 package's order) and an optional ``device_put`` of each finished batch.

@@ -1,5 +1,7 @@
-"""NIfTI-1 image I/O in numpy and gzip (a copy of ``medseg/data/nifti.py``
-without its optional C++ gunzip accelerator, ``medseg/native``).
+"""NIfTI-1 image I/O in numpy (a copy of ``medseg/data/nifti.py``). A
+``.nii.gz`` file is gunzipped by the port's native library
+(``medseg_torch.native.inflate_gzip``, which releases the GIL), as the JAX
+package's is by ``medseg/native``.
 
 Implements the NIfTI-1 standard (348-byte header, single-file ``.nii``
 magic ``n+1``): dims, dtype, pixdim, scl_slope/scl_inter scaling, and the
@@ -14,6 +16,8 @@ import gzip
 import struct
 
 import numpy as np
+
+from medseg_torch import native
 
 _DTYPES = {
     2: np.uint8,
@@ -100,11 +104,19 @@ def _parse_header(hdr: bytes):
 
 
 def _read_bytes(path: str) -> bytes:
-    """File bytes, gunzipped if needed."""
+    """File bytes, gunzipped if needed by the native library into a buffer of
+    the size the gzip footer gives (ISIZE, the length mod 2^32). A file whose
+    footer does not give it (a volume of 4 GiB or more, several gzip members)
+    is decoded by ``gzip.decompress``, as in the JAX package."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:2] != b"\x1f\x8b":
         return blob
+    out_size = struct.unpack("<I", blob[-4:])[0]
+    if out_size:
+        decoded = native.inflate_gzip(blob, out_size)
+        if decoded is not None and len(decoded) == out_size:
+            return decoded
     return gzip.decompress(blob)
 
 

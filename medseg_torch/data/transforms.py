@@ -1,7 +1,9 @@
-"""Deterministic preprocessing transforms, host side, numpy (a copy of the
-host chain of ``medseg/data/transforms.py``, without its optional C++
-resampler ``medseg/native``: the numpy path here is the one the JAX package
-takes when that library is absent).
+"""Deterministic preprocessing transforms, host side (a copy of the host
+chain of ``medseg/data/transforms.py``). ``respace`` resamples through the
+port's C++/OpenMP library ``medseg_torch/native``, as the JAX package's does
+through ``medseg/native``; the numpy samplers ``_trilinear_sample`` and
+``_nearest_sample`` (`plain_resample`) are its plain versions, which the tests
+and ``chip_smoke.py`` hold the library to.
 
 Capability contracts are the MONAI 0.6 transforms the reference composes:
 
@@ -26,6 +28,7 @@ from typing import Sequence
 
 import numpy as np
 
+from medseg_torch import native
 from medseg_torch.data.nifti import read_nifti
 
 
@@ -161,6 +164,33 @@ def _nearest_sample(vol: np.ndarray, coords: np.ndarray) -> np.ndarray:
     return vol[idx[..., 0], idx[..., 1], idx[..., 2]]
 
 
+def plain_resample(data: np.ndarray, matrix: np.ndarray, out_shape, mode: str) -> np.ndarray:
+    """The numpy version of the library's resamplers: ``data`` (X, Y, Z[, C])
+    sampled at ``matrix`` (3x4, output voxel -> input voxel) over the output
+    grid, ``mode`` "nearest" or "trilinear"."""
+    grid = np.stack(
+        np.meshgrid(*[np.arange(int(s)) for s in out_shape], indexing="ij"), axis=-1
+    ).astype(np.float64)
+    coords = grid @ matrix[:3, :3].T + matrix[:3, 3]
+    if mode == "nearest":
+        return _nearest_sample(data, coords)
+    if data.ndim == 3:  # _trilinear_sample expects a channel dim
+        return _trilinear_sample(data[..., None], coords)[..., 0].astype(data.dtype)
+    return _trilinear_sample(data, coords).astype(data.dtype)
+
+
+def _native_resample(data: np.ndarray, matrix: np.ndarray, out_shape, mode: str) -> np.ndarray:
+    """The library's resampler for ``mode`` on (X, Y, Z[, C]) data, float32
+    out (the JAX package's ``_native_resample``)."""
+    squeeze = data.ndim == 3
+    src = np.ascontiguousarray(data[..., None] if squeeze else data, dtype=np.float32)
+    if mode == "nearest":
+        out = native.nearest_resample(src, matrix, out_shape)
+    else:
+        out = native.trilinear_resample(src, matrix, out_shape)
+    return out[..., 0] if squeeze else out
+
+
 def _zoom_affine(affine: np.ndarray, pixdim: np.ndarray) -> np.ndarray:
     """MONAI 0.6 ``zoom_affine(affine, scale, diagonal=False)``: keep the
     rotation (shear removed via Cholesky polar split rzs = R @ ZS), set the
@@ -217,8 +247,9 @@ def respace(
     ``zoom_affine`` (rotation kept, shear removed, zooms = pixdim), output
     shape and origin from ``compute_shape_offset`` (corner-based), sampling
     through the voxel->voxel affine with border clamping — image trilinear,
-    label nearest. Cross-checked against torch ``grid_sample`` (MONAI's
-    backend) in tests/test_spacing_golden_torch.py.
+    label nearest, through the C++/OpenMP library (float32 out). Cross-checked
+    against torch ``grid_sample`` (MONAI's backend) in
+    tests/test_spacing_golden_torch.py.
     """
     out = dict(sample)
     pixdim = np.asarray(pixdim, dtype=np.float64)
@@ -237,22 +268,7 @@ def respace(
         m = inv_old @ new_affine  # 4x4: new voxel -> old voxel
         if np.array_equal(new_shape, in_shape) and np.allclose(m, np.eye(4)):
             continue  # resample would be the identity
-        grid = np.stack(
-            np.meshgrid(
-                np.arange(new_shape[0]),
-                np.arange(new_shape[1]),
-                np.arange(new_shape[2]),
-                indexing="ij",
-            ),
-            axis=-1,
-        ).astype(np.float64)
-        coords = grid @ m[:3, :3].T + m[:3, 3]
-        if mode == "nearest":
-            res = _nearest_sample(data, coords)
-        elif data.ndim == 3:  # _trilinear_sample expects a channel dim
-            res = _trilinear_sample(data[..., None], coords)[..., 0].astype(data.dtype)
-        else:
-            res = _trilinear_sample(data, coords).astype(data.dtype)
+        res = _native_resample(data, m[:3, :], new_shape, mode)
         out[key] = np.ascontiguousarray(res)
         out[f"{key}_affine"] = new_affine
     return out

@@ -2,12 +2,15 @@
 validation chains and the device chains (run on the CPU here).
 
 NIfTI files written by either package read back identically in the other.
-The host chains are the same numpy code: outputs equal to 1e-5 against the
-JAX chain on its numpy path (the one it takes without its C++ resampler,
-``medseg/native``, which the port does not have; that library rounds
-nearest-neighbour ties otherwise on oblique grids).
-The device chains are held to the port's host chain and to the JAX device
-chains at 3e-4, the bound ``tests/test_resample_device.py`` uses for the
+The host chains are the same code: outputs equal to 1e-5 against the JAX
+chain with the same resampler on both sides, each package's C++ library
+(``medseg_torch/native``, ``medseg/native``: the same source and flags),
+or, where the JAX package's library is not built, both chains' numpy
+samplers (the library rounds nearest-neighbour ties otherwise than numpy on
+oblique grids).
+The device chains are held to the port's host chain (on its numpy samplers
+for labels on the oblique grid, whose coordinates the device computes as
+numpy does) and to the JAX device chains at 3e-4, the bound ``tests/test_resample_device.py`` uses for the
 JAX device chain against its host chain (fp32 contractions against fp64
 host coordinates), on an anisotropic and an oblique affine.
 """
@@ -25,6 +28,7 @@ from medseg.ops.post import multichannel_to_label_map as jax_label_map
 from medseg_torch.config import DataConfig, preset
 from medseg_torch.data import nifti as tnifti
 from medseg_torch.data import pipelines as tpipe
+from medseg_torch.data import transforms as ttransforms
 from medseg_torch.data.dataset import load_decathlon_datalist
 from medseg_torch.ops import post as tpost
 
@@ -100,8 +104,14 @@ def _mri_volume(tmp_path, rng, affine):
 
 
 @pytest.fixture
-def jax_numpy_resample(monkeypatch):
-    monkeypatch.setattr(jtransforms, "_native_resample", lambda *a, **k: None)
+def same_resampler(monkeypatch):
+    """Both chains on the C++ library, or where the JAX package's is not
+    built, both on their numpy samplers."""
+    from medseg import native as jnative
+
+    if jnative.load() is None:
+        monkeypatch.setattr(jtransforms, "_native_resample", lambda *a, **k: None)
+        monkeypatch.setattr(ttransforms, "_native_resample", ttransforms.plain_resample)
 
 
 def _close(a, b, tol):
@@ -111,7 +121,7 @@ def _close(a, b, tol):
 
 
 @pytest.mark.parametrize("affine", [_anisotropic(), _oblique()], ids=["anisotropic", "oblique"])
-def test_ct_chains_match_jax(tmp_path, affine, jax_numpy_resample):
+def test_ct_chains_match_jax(tmp_path, affine, same_resampler):
     path = _ct_volume(tmp_path, np.random.default_rng(1), affine)
     host = tpipe.val_transforms(DataConfig())({"image": path})
     jhost = jpipe.val_transforms(JaxDataConfig())({"image": path})
@@ -129,7 +139,7 @@ def test_ct_chains_match_jax(tmp_path, affine, jax_numpy_resample):
 
 @pytest.mark.parametrize("affine", [np.diag([1.3, 0.9, 1.1, 1.0]), _oblique()],
                          ids=["anisotropic", "oblique"])
-def test_mri_chains_match_jax(tmp_path, affine, jax_numpy_resample):
+def test_mri_chains_match_jax(tmp_path, affine, same_resampler):
     sample = _mri_volume(tmp_path, np.random.default_rng(2), affine)
     cfg, jcfg = preset("Task01_BrainTumour", 4).data, JaxDataConfig(task="mri", crop_foreground=False)
     assert cfg.task == "mri" and not cfg.crop_foreground
@@ -137,10 +147,17 @@ def test_mri_chains_match_jax(tmp_path, affine, jax_numpy_resample):
     jhost = jpipe.val_transforms(jcfg)(dict(sample))
     for key in ("image", "label"):
         _close(host[key], jhost[key], 1e-5)
+    # the device chain computes its coordinates as numpy does, so its
+    # nearest-neighbour ties on the oblique grid are held to the host chain
+    # on the numpy samplers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttransforms, "_native_resample", ttransforms.plain_resample)
+        host_plain = tpipe.val_transforms(cfg)(dict(sample))
+    _close(host_plain["image"], host["image"], 1e-5)
     dev = tpipe.val_transforms_device(cfg, "cpu")(dict(sample))
     jdev = jpipe.val_transforms_device(jcfg)(dict(sample))
     for key in ("image", "label"):
-        _close(dev[key], host[key], 3e-4)
+        _close(dev[key], host_plain[key], 3e-4)
         _close(dev[key], jdev[key], 3e-4)
     # an image to segment has no label: the port's chain runs (the JAX one
     # raises KeyError in its label converter)

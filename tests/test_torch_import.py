@@ -51,6 +51,7 @@ def test_port_imports_no_jax_flax_or_triton():
         "medseg_torch.parallel", "medseg_torch.parallel.mesh", "medseg_torch.parallel.runtime",
         "medseg_torch.parallel.launch", "medseg_torch.utils.debug",
         "medseg_torch.tools.dryrun_multichip", "medseg_torch.tools.probe_determinism",
+        "medseg_torch.native",
     ):
         assert name in modules.split(","), name
     assert heavy == "", f"imported: {heavy}"
@@ -63,6 +64,20 @@ def test_import_builds_nothing():
     probe = (
         "import medseg_torch.kernels.conv_of, medseg_torch.kernels._build as b; "
         "print(b._lib is None and b.build_seconds is None)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "True"
+
+
+def test_import_builds_no_native_library():
+    """Importing the data chain loads no host library: ``g++`` builds it at
+    the first call into it."""
+    probe = (
+        "import medseg_torch.data.transforms, medseg_torch.native as n; "
+        "print(n._lib is None and n.build_seconds is None)"
     )
     proc = subprocess.run(
         [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120,
