@@ -32,27 +32,30 @@ and on BraTS. Phases, each raising on failure:
    row whose last window starts off 8 voxels), then at the BraTS window
    (128^3, four channels), with errors, CUDA-event times and the route each
    case took (K1 and K6: the tensor cores for bf16 with C_in a multiple of
-   16; K5 and K2: the tensor cores for bf16 with both halves of their input
+   16, the narrow-input tensor-core kernel for bf16 with C_in <= 8 and no
+   prologue, enc1.conv1 at 1 and 4 channels, also at the config-4 batch of
+   6; K5 and K2: the tensor cores for bf16 with both halves of their input
    a multiple of 16 wide; K3 and K4: the tensor cores for bf16 with C a
    multiple of 16 and K_pad 8, 16 or 32; the CUDA cores otherwise), K5 also
-   at feature size 32's (64+64)->64, every bf16 K3, K4 and K5 case on the
-   tensor cores;
+   at feature size 32's (64+64)->64, every bf16 K1, K3, K4 and K5 case on
+   the tensor cores;
 4. the fused forward (kernels, bf16) against the module forward (fp32) on
    one batch of four 96^3 windows, at feature size 16 (UNETR-B/16), then at
-   feature size 32 (K5 over (64+64)->64), K2, K3 and K5 only on the tensor
-   cores;
+   feature size 32 (K5 over (64+64)->64), K1, K2, K3 and K5 only on the
+   tensor cores;
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
    timed run each, whose kernel launches are counted: 50 K4, 50 K2 and 50
-   K5 launches, all on the tensor cores, and K1 on the tensor cores);
+   K5 launches, all on the tensor cores, and K1 only on the tensor cores,
+   its narrow-input kernel included);
 6. config 8: a small four-channel volume against the plain fp32 forward,
    then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched;
-   K2, K3 and K5 only on the tensor cores);
+   K1, K2, K3 and K5 only on the tensor cores, K1's narrow kernel launched);
 7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
    preprocessing on a synthetic two-volume CT Decathlon directory; masks
-   checked, end-to-end vol/s printed (K2, K4 and K5 only on the tensor
-   cores);
+   checked, end-to-end vol/s printed (K1, K2, K4 and K5 only on the
+   tensor cores);
 8. the training step's kernels (K6, K1's data gradient, K7, K8) against
    their plain versions at its shapes, fp32 and bf16, timed (K7 and K8 also
    on 2 classes and on a ragged 4x97^3 volume, and by their device kernels'
@@ -62,7 +65,8 @@ and on BraTS. Phases, each raising on failure:
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
    whose losses must be finite and fall and whose kernel launches are
-   counted (K1 and K6 on the tensor cores);
+   counted (K1 and K6 only on the tensor cores, both narrow kernels
+   launched);
 10. flat-kernel: K9 against its plain version at the flat route's shape
     (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed, with the
     route each took (every bf16 case on the tensor cores, mode FLAT);
@@ -94,18 +98,20 @@ and on BraTS. Phases, each raising on failure:
     evaluation's seconds and Hausdorff's share; the host chain's resampling
     through the native library (calls counted);
 15. mri-train-kernel: the BraTS step's C_in = 4 kernels (K1 4->16 and K6 at
-    C = 4 @4x128^3, CUDA cores) against their plain versions, timed;
+    C = 4 @4x128^3: the narrow-input kernels in bf16, the CUDA cores in
+    fp32) against their plain versions, timed;
 16. seg-cli-mri: the same CLI on a synthetic Task01_BrainTumour directory
     (four 4-channel 160x160x128 volumes, labels 0-3): 2 steps of 4 crops of
-    128^3, bf16, sigmoid DiceCE (no K7 or K8), K1 and K6 on their CUDA-core
-    routes in the steps, the validation's out head (K4 on the z-row walk or
+    128^3, bf16, sigmoid DiceCE (no K7 or K8), K1 and K6 only on the tensor
+    cores in the steps, their narrow kernels launched, the validation's out head (K4 on the z-row walk or
     K3 on the flat walk, as ``zrow_supported`` picks); step ms and peak
     memory. Phases 14-16 add about 1.5 minutes to the run (89 s on an H100:
     69, 8 and 12);
-17. determinism: K1, K2 and K5 twice on the same inputs at the serving,
-    BraTS and training shapes, fp32 (CUDA cores) and bf16 (tensor cores),
-    then the fused forward twice on four 96^3 windows: outputs, statistics
-    and logits bitwise equal;
+17. determinism: K1, K2, K5 and K6 twice on the same inputs at the serving,
+    BraTS and training shapes, fp32 (CUDA cores) and bf16 (tensor cores,
+    both narrow-input kernels included), then the fused forward twice on
+    four 96^3 windows: outputs, statistics, filter gradients and logits
+    bitwise equal;
 18. dp: a process group of one rank on NCCL: config 5's step through
     ``make_train_step(mesh=...)`` (1 warm step, then two timed blocks of 5
     in turns with the same steps without a mesh from the same weights;
@@ -129,7 +135,8 @@ and on BraTS. Phases, each raising on failure:
 The line before the last is the JSON kernel table (K1-K6 and K9 with the
 launches of their tensor-core route beside all their launches, the
 route their timed case took, and each kernel's fp32 case times beside the
-bf16 ones); the last line is ``{"ok": true, "device": {...}}``. Imports
+bf16 ones; the narrow-input kernels of K1 and K6 as rows of their own); the
+last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
@@ -168,6 +175,13 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces, the bf16 case of
                     "dice_ce_bwd 14 classes @4x96^3"),
     "conv3x3x3_flat": ("medseg_torch/kernels/csrc/conv_tc.cu", "medseg/kernels/conv3d.py:134",
                        "dec3.conv1 128->64 (feature size 32) @4x48^3"),
+    # K1 and K6 at a narrow input (C_in <= 8: enc1.conv1): "<wrapper>[narrow]"
+    # counts the launches of that kernel
+    "conv3x3x3_of[narrow]": ("medseg_torch/kernels/csrc/conv_narrow_tc.cu",
+                             "medseg/kernels/conv_of.py:761", "enc1.conv1 1->16 @4x96^3"),
+    "conv3x3x3_wgrad_of[narrow]": ("medseg_torch/kernels/csrc/conv_narrow_tc.cu",
+                                   "medseg/kernels/conv_of.py:914",
+                                   "wgrad enc1.conv1 1->16 @4x96^3"),
 }
 # K1, K2, K3, K4, K5, K6 and K9 have a second route, on the CUDA cores
 # (fp32, C_in of 1 or 4, K9 at C % 16 != 0, K3/K4 at other widths); the
@@ -181,10 +195,13 @@ CUDA_CORE_SOURCES = {"conv3x3x3_of": "medseg_torch/kernels/csrc/conv_of.cu",
                      "conv3x3x3_wgrad_of": "medseg_torch/kernels/csrc/wgrad_of.cu",
                      "conv3x3x3_flat": "medseg_torch/kernels/csrc/conv_flat.cu"}
 K1_TC, K6_TC = "conv3x3x3_of[tc]", "conv3x3x3_wgrad_of[tc]"
-# K5 and K2 run only on the tensor cores on the serving paths (feature sizes
-# 16 and 32), and so do K4 on the z-row walk and K3 on the flat walk and in
-# the fused forward (bf16, C 16 or 32, K_pad 8 or 16)
-TC_ONLY = ("conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+K1_NARROW, K6_NARROW = "conv3x3x3_of[narrow]", "conv3x3x3_wgrad_of[narrow]"
+# K1 (enc1.conv1 on the narrow-input kernel), K5 and K2 run only on the
+# tensor cores on the serving paths (feature sizes 16 and 32), and so do K4
+# on the z-row walk and K3 on the flat walk and in the fused forward (bf16,
+# C 16 or 32, K_pad 8 or 16); K1 and K6 on the bf16 training steps
+TC_ONLY = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+TRAIN_TC_ONLY = ("conv3x3x3_of", "conv3x3x3_wgrad_of")
 ZROW_TC_ONLY, FLAT_TC_ONLY = TC_ONLY + ("outhead_row_of",), TC_ONLY + ("outhead_of",)
 # the bf16 cases of phase 3 that must take the tensor cores
 SERVING_TC_REQUIRED = ("conv3x3x3_of_cat2", "outhead_of", "outhead_row_of")
@@ -201,13 +218,13 @@ TRAIN_BATCH, CROP, N_CLASSES = 4, 96, 14  # BASELINE config 5
 ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
-                 K6_TC)
+                 K6_TC, K1_NARROW, K6_NARROW)
 # per config-4 volume, one launch per batch of 6 windows: 10 d-starts x 5
 # groups of 2 h-rows (3 w-windows each)
 CONFIG4_BATCHES = {"outhead_row_of": 50, "conv3x3x3_of_cat2": 50, "conv3x3x3_of_combine": 50}
 # each kernel's launches come from the path that is its home
 HOME_PATH = {"outhead_of": "brats", "conv3x3x3_wgrad_of": "train", "dice_ce_sums": "train",
-             "dice_ce_bwd": "train", "conv3x3x3_flat": "pretrain-flat"}
+             "dice_ce_bwd": "train", "conv3x3x3_flat": "pretrain-flat", K6_NARROW: "train"}
 CLI_VOLUME = (200, 200, 120)  # CT voxels at 1.5 x 1.5 x 2 mm: ~300 x 300 x 240 after respacing
 # ranking pretraining (the pretraining CLI's defaults: 4 partitions, temperature
 # 0.1, lr 1e-4, weight decay 1e-5), bf16 through the kernels vs the fp32
@@ -227,8 +244,10 @@ CLI_PRETRAIN_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: ~192^3 af
 SEG_CT_VOLUME = (128, 128, 96)  # CT voxels at 1.5 x 1.5 x 2 mm: 192^3 after respacing (z-row)
 SEG_MRI_VOLUME = (160, 160, 128)  # four MRI channels at 1 mm
 SEG_METRICS = ("dice", "precision", "recall", "hausdorff")
-# K1, K2 and K5 twice on the same inputs (phase 17): both routes
-DETERMINISM_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine")
+# K1, K2, K5 and K6 twice on the same inputs (phase 17): both routes, and
+# the narrow-input kernels of K1 and K6
+DETERMINISM_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine",
+                       "conv3x3x3_wgrad_of")
 DP_STEPS = 5  # timed data-parallel steps after a warm one (phase 18)
 DP_LR = 1e-4
 FLAT_SHARDED_VOLUME = (128, 128, 97)  # an odd grid: the sharded flat walk (K3)
@@ -489,14 +508,17 @@ def phase_native(card: str) -> None:
 
 
 def all_launches() -> dict:
-    """Launches of each kernel, and ``<name>[tc]`` those of K1-K6 and K9
-    that took the tensor-core route."""
+    """Launches of each kernel, ``<name>[tc]`` those of K1-K6 and K9 that
+    took a tensor-core route, ``<name>[narrow]`` those of K1 and K6 that took
+    the narrow-input kernel."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
     wrappers = {fn.__name__: fn for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in CUDA_CORE_SOURCES:
         counts[f"{name}[tc]"] = wrappers[name].tc_launches
+    for fn in conv_of.NARROW_KERNELS:
+        counts[f"{fn.__name__}[narrow]"] = fn.narrow_launches
     return counts
 
 
@@ -521,18 +543,23 @@ def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases_fn(device, dtype):
             tc_before = getattr(case.kernel, "tc_launches", 0)
+            narrow_before = getattr(case.kernel, "narrow_launches", 0)
             r = kernel_check.run_case(case, dtype, timed=True)
             tc = getattr(case.kernel, "tc_launches", 0) > tc_before
-            route = "tensor cores" if tc else "cuda cores"
+            narrow = getattr(case.kernel, "narrow_launches", 0) > narrow_before
+            route = "narrow tc" if narrow else "tensor cores" if tc else "cuda cores"
             name = case.kernel.__name__
-            entry = table.setdefault(name, {"max_abs_err": 0.0})
-            entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
-            if dtype == torch.bfloat16 and case.name == KERNELS[name][2]:
-                entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms", "library_cl_ms", "device_ms")})
-                entry["timed_route"] = route
-            if dtype == torch.float32 and case.name == KERNELS[name][2]:
-                entry.update({f"fp32_{k}": r[k] for k in ("ms", "library_ms", "library_cl_ms")})
+            # the wrapper's row, and its narrow kernel's where the case took it
+            for row in (name, f"{name}[narrow]") if narrow else (name,):
+                entry = table.setdefault(row, {"max_abs_err": 0.0})
+                entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+                if dtype == torch.bfloat16 and case.name == KERNELS[row][2]:
+                    entry.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "library_cl_ms", "device_ms")})
+                    entry["timed_route"] = route
+                if dtype == torch.float32 and case.name == KERNELS[row][2]:
+                    entry.update({f"fp32_{k}": r[k] for k in ("ms", "library_ms",
+                                                              "library_cl_ms")})
             if dtype == torch.bfloat16 and name in tc_required and not tc:
                 failed.append((str(dtype), case.name, "not on the tensor cores"))
             lib = "" if r["library_ms"] is None else f" library {r['library_ms']:8.3f} ms"
@@ -739,7 +766,7 @@ def phase_slice(model, model_fp32, device, card: str) -> dict:
             f"{300 / seconds:.1f} windows/s, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]; launches "
             f"{launches[acc]}")
-        require_launched(launches[acc], ZROW_KERNELS + (K1_TC,), "config-4")
+        require_launched(launches[acc], ZROW_KERNELS + (K1_TC, K1_NARROW), "config-4")
         require_tc_only(launches[acc], f"config 4 (acc {acc})", ZROW_TC_ONLY)
         counts = {name: launches[acc][name] for name in CONFIG4_BATCHES}
         if counts != CONFIG4_BATCHES:
@@ -786,7 +813,7 @@ def phase_brats(device, card: str) -> dict:
     log(f"[brats] config 8 240x240x155x4 flat walk, acc bf16: {seconds:.3f} s/volume, "
         f"{18 / seconds:.1f} windows/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
         f"[{card}]; launches {launches}")
-    require_launched(launches, FLAT_KERNELS, "config-8")
+    require_launched(launches, FLAT_KERNELS + (K1_NARROW,), "config-8")
     require_tc_only(launches, "config 8", FLAT_TC_ONLY)
     return launches
 
@@ -930,6 +957,7 @@ def phase_train(device, card: str) -> dict:
     missing = [name for name in TRAIN_KERNELS if launches[name] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched in the training steps: {missing}")
+    require_tc_only(launches, "the config-5 steps", TRAIN_TC_ONLY)
     return launches
 
 
@@ -1470,9 +1498,8 @@ def phase_seg_cli_mri(device, card: str) -> dict:
         f"launches {launches}")
     if len(walks) != 1:
         raise RuntimeError(f"seg-cli-mri: validation walks {walks}")
-    cuda_cores = {name: step[name] - step[f"{name}[tc]"] for name in ("conv3x3x3_of",
-                                                                     "conv3x3x3_wgrad_of")}
-    require_launched(cuda_cores, tuple(cuda_cores), "seg-cli-mri train step's CUDA-core")
+    require_launched(step, (K1_NARROW, K6_NARROW), "seg-cli-mri train step's narrow-input")
+    require_tc_only(step, "the seg-cli-mri train step", TRAIN_TC_ONLY)
     if step["dice_ce_sums"] or step["dice_ce_bwd"]:
         raise RuntimeError(f"seg-cli-mri: the sigmoid loss launched K7/K8: {step}")
     require_launched(validation, (head,), "seg-cli-mri validation")
@@ -1480,7 +1507,8 @@ def phase_seg_cli_mri(device, card: str) -> dict:
 
 
 def phase_determinism(device, card: str) -> dict:
-    """K1, K2 and K5 twice on both routes at the path's shapes, and the fused
+    """K1, K2, K5 and K6 twice on both routes at the path's shapes (the
+    narrow-input kernels of K1 and K6 among them), and the fused
     forward twice on four 96^3 windows: every output, statistic and logit
     the same bits (``tools/probe_determinism.py``'s checks)."""
     from medseg_torch.kernels import kernel_check
@@ -1503,7 +1531,8 @@ def phase_determinism(device, card: str) -> dict:
     routes = {name: (launches[name], launches[f"{name}[tc]"]) for name in DETERMINISM_KERNELS}
     if not all(n > tc > 0 for n, tc in routes.values()):
         raise RuntimeError(f"determinism: (launches, tensor-core launches) {routes}: each of K1, "
-                           "K2 and K5 must run on both routes")
+                           "K2, K5 and K6 must run on both routes")
+    require_launched(launches, (K1_NARROW, K6_NARROW), "determinism")
     if failed:
         raise RuntimeError(f"not bitwise reproducible: {failed}")
     return launches
@@ -1662,6 +1691,37 @@ def phase_dp2(device, card: str) -> dict:
     return launches
 
 
+def kernel_rows(table: dict, paths: dict) -> list[dict]:
+    """The kernel JSON line's rows: per kernel of ``KERNELS`` its launches on
+    its home path and on each path, its largest error and its timed case's
+    numbers (``table``, from ``phase_kernels``)."""
+    kernels = []
+    for name, (src, tpu, _) in KERNELS.items():
+        row = table[name]
+        home = paths[HOME_PATH.get(name, "serving")]
+        kernel = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": home[name],
+            "launches_by_path": {path: launches[name] for path, launches in paths.items()},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
+            "device_ms": row.get("device_ms"),
+            "fp32_ms": row.get("fp32_ms"), "fp32_library_ms": row.get("fp32_library_ms"),
+            "fp32_library_channels_last_ms": row.get("fp32_library_cl_ms"),
+            "timed_route": row.get("timed_route"),
+        }
+        if name in CUDA_CORE_SOURCES:  # K1-K6, K9: the launches of each of their routes
+            tc = f"{name}[tc]"
+            kernel.update({
+                "cuda_core_source": CUDA_CORE_SOURCES[name],
+                "tc_launches": home[tc],
+                "tc_launches_by_path": {path: launches[tc] for path, launches in paths.items()},
+            })
+        kernels.append(kernel)
+    return kernels
+
+
 def main() -> int:
     from medseg_torch.kernels import kernel_check
 
@@ -1703,29 +1763,7 @@ def main() -> int:
     paths["dp"] = phase_dp(device, card)
     torch.cuda.empty_cache()
     paths["dp-2"] = phase_dp2(device, card)
-    kernels = []
-    for name, (src, tpu, _) in KERNELS.items():
-        row = table[name]
-        home = paths[HOME_PATH.get(name, "serving")]
-        kernel = {
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": home[name],
-            "launches_by_path": {path: launches[name] for path, launches in paths.items()},
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "library_channels_last_ms": row["library_cl_ms"],
-            "device_ms": row.get("device_ms"),
-            "fp32_ms": row.get("fp32_ms"), "fp32_library_ms": row.get("fp32_library_ms"),
-            "fp32_library_channels_last_ms": row.get("fp32_library_cl_ms"),
-        }
-        if name in CUDA_CORE_SOURCES:  # K1-K6, K9: the launches of each of their routes
-            tc = f"{name}[tc]"
-            kernel.update({
-                "cuda_core_source": CUDA_CORE_SOURCES[name], "timed_route": row["timed_route"],
-                "tc_launches": home[tc],
-                "tc_launches_by_path": {path: launches[tc] for path, launches in paths.items()},
-            })
-        kernels.append(kernel)
+    kernels = kernel_rows(table, paths)
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

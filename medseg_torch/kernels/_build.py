@@ -53,6 +53,14 @@ _SIGNATURES = {
     "medseg_conv_tc_plan": [_I] * 7 + [_P],
     # device, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
     "medseg_wgrad_tc": [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P],
+    # device, residual, c_out, x, w_packed, wres_packed, out, s, ss, res, rs,
+    # rss, part, slots, B, C, D, H, W, stream
+    "medseg_conv_narrow": [_I] * 3 + [_P] * 10 + [_I] * 6 + [_P],
+    # device, c_out, x, g, partial, dw, B, C, D, H, W, groups, stream
+    "medseg_wgrad_narrow": [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P],
+    # device, which (0 forward, 1 filter gradient), residual, c_out, C,
+    # per_sm (1 int out)
+    "medseg_narrow_plan": [_I] * 5 + [_P],
     # device, bf16, co_tile, x, w, out, B, C, C_out, D, H, W, stream
     "medseg_conv_flat": [_I] * 3 + [_P] * 3 + [_I] * 6 + [_P],
     # device, which (0 sums, 1 bwd), bf16, K, B, V, blocks (1 int out)

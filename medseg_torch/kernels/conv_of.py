@@ -31,10 +31,17 @@ K1, K2, K5 and K6 have two routes each, picked by shape and dtype alone:
   K9's tensor-core route, mode ``flat``, ``conv_flat``) stage their input
   asynchronously (cp.async) where W is a multiple of 8 (``tc_staging``),
   through registers otherwise;
+- the tensor cores at narrow inputs (``csrc/conv_narrow_tc.cu``): K1 in mode
+  plain (with or without the residual tap) and K6, bf16, 1 to 8 input
+  channels (``narrow_tc_route``, ``wgrad_narrow_tc_route``: encoder1.conv1,
+  C_in 1 on CT and 4 on BraTS), C_out 16 or 32, the reduction packed across
+  taps (``pack_narrow_weight``, ``pack_narrow_wres`` in the order of
+  ``narrow_columns``);
 - the CUDA cores (``csrc/conv_of.cu``, ``csrc/wgrad_of.cu``): every other
-  call (fp32 operands, C_in of 1 or 4). They are instantiated for 16 and 32
-  output channels; a 64-wide conv runs as two 32-wide launches over the
-  halves of its weight (K6: of its cotangent), concatenated.
+  call (fp32 operands, the prologue at narrow C_in, 9 <= C_in <= 15). They
+  are instantiated for 16 and 32 output channels; a 64-wide conv runs as
+  two 32-wide launches over the halves of its weight (K6: of its
+  cotangent), concatenated.
 
 K3 and K4 have two routes too, by ``outhead_tc_route``: bf16 with C a
 multiple of 16 and K_pad 8, 16 or 32 on the tensor cores
@@ -57,8 +64,8 @@ slot of its own in a buffer the wrapper allocates (``cuda_core_stat_slots``,
 one order, so the same inputs give the same bits on every call.
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its CUDA kernel (``csrc/``) or raises. Each wrapper's ``launches``
-counts its kernel launches, and ``tc_launches`` those of them that took the
-tensor-core route.
+counts its kernel launches, ``tc_launches`` those of them that took a
+tensor-core route, and ``narrow_launches`` those that took the narrow one.
 """
 
 from __future__ import annotations
@@ -102,6 +109,9 @@ TC_ASYNC_MODES = ("cat2", "flat")
 TC_ASYNC_W_ALIGN = 8
 WGRAD_TC_BLOCKS_PER_SM = 2  # K6 tile groups per SM (two blocks fit at C_out = 16)
 CC_TILE = (2, 16, 16)  # (z, y, x) voxel tile of a block of csrc/conv_of.cu
+NARROW_MAX_C = 8  # widest input of csrc/conv_narrow_tc.cu
+NARROW_C_OUT = (16, 32)  # its output widths (K1 and K6)
+NARROW_TILE = (2, 4, 64)  # (z, y, x) voxel tile of its blocks
 TC_GROUP_THREADS = 256  # threads of a tile group of csrc/conv_tc.cu (NT)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -127,6 +137,125 @@ def wgrad_tc_route(c: int, c_out: int, dtype: torch.dtype) -> bool:
     """Whether a K6 call (x of ``c`` channels, a cotangent of ``c_out``)
     in ``dtype`` runs on the tensor cores."""
     return tc_route(c, c_out, dtype)
+
+
+def narrow_tc_route(c_in: int, c_out: int, dtype: torch.dtype, mode: str = "plain") -> bool:
+    """Whether a K1 call of ``c_in`` -> ``c_out`` channels in ``dtype`` runs
+    on the narrow-input tensor-core kernel (``csrc/conv_narrow_tc.cu``): bf16,
+    no prologue, 1 <= C_in <= 8, C_out 16 or 32; with or without the residual
+    tap."""
+    return (dtype == torch.bfloat16 and mode == "plain" and 1 <= c_in <= NARROW_MAX_C
+            and c_out in NARROW_C_OUT)
+
+
+def wgrad_narrow_tc_route(c: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether a K6 call (x of ``c`` channels, a cotangent of ``c_out``) in
+    ``dtype`` runs on the narrow-input tensor-core kernel."""
+    return narrow_tc_route(c, c_out, dtype)
+
+
+def narrow_cp(c: int) -> int:
+    """Channels of a staged voxel of the narrow kernels: C rounded up to 1, 2,
+    4 or 8 (the extra channels are staged 0)."""
+    return next(cp for cp in (1, 2, 4, 8) if c <= cp)
+
+
+def narrow_k(c: int) -> int:
+    """The narrow forward's packed reduction: 27 (tap, ci) per staged
+    channel, padded to whole k16 steps (32 at C = 1, 112 at C = 4)."""
+    return -(-27 * narrow_cp(c) // TC_SLICE) * TC_SLICE
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_columns(c: int) -> tuple[tuple[int, int, int], ...]:
+    """The (k, tap, ci) of each column of the narrow forward's packed
+    reduction (taps kz, ky, kx row-major; CP = ``narrow_cp(C)``), padded k
+    and padding channels left out. At CP 1 and 2, k = tap * CP + ci. At CP 4
+    and 8 a k16 step holds 16 / CP whole taps, ordered so that a lane's two
+    B registers (k = 16 ks + 2 tig + e and that + 8) are 4 consecutive
+    channels of one tap (one 8-byte load): tap = (16 / CP) ks + tig / (CP /
+    4), ci = 4 (tig % (CP / 4)) + 2 h + e for k = 16 ks + 8 h + 2 tig + e."""
+    cp = narrow_cp(c)
+    cols = []
+    for k in range(narrow_k(c)):
+        if cp <= 2:
+            tap, ci = divmod(k, cp)
+        else:
+            ks, r = divmod(k, 16)
+            h, r = divmod(r, 8)
+            tig, e = divmod(r, 2)
+            lpt = cp // 4  # lanes per tap
+            tap, ci = 16 // cp * ks + tig // lpt, 4 * (tig % lpt) + 2 * h + e
+        if tap < 27 and ci < c:
+            cols.append((k, tap, ci))
+    return tuple(cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_sources(c: int, residual: bool, device: torch.device) -> torch.Tensor:
+    """Per packed column, its source in the flattened (C, 27) weight (or C
+    for the residual tap's (C,)), or the index of an appended zero column;
+    made once per device, so that packing is one gather on the device."""
+    n_src = c if residual else 27 * c
+    src = [n_src] * narrow_k(c)
+    for k, tap, ci in narrow_columns(c):
+        if not residual:
+            src[k] = 27 * ci + tap
+        elif tap == 13:
+            src[k] = ci
+    return torch.tensor(src, dtype=torch.long, device=device)
+
+
+def _pack_narrow(w2d: torch.Tensor, c: int, residual: bool) -> torch.Tensor:
+    zero = w2d.new_zeros((w2d.shape[0], 1))
+    return torch.cat([w2d, zero], 1).index_select(1, _narrow_sources(c, residual, w2d.device))
+
+
+def pack_narrow_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(CO, C, 3, 3, 3) -> (CO, KP), KP = ``narrow_k(C)``: column k holds
+    ``weight[co, ci, tap]`` for its (tap, ci) of ``narrow_columns``; the
+    padding channels' and padded k's columns are 0 (the A rows of
+    ``csrc/conv_narrow_tc.cu``)."""
+    c_out, c = weight.shape[:2]
+    return _pack_narrow(weight.reshape(c_out, 27 * c), c, False)
+
+
+def pack_narrow_wres(wres: torch.Tensor) -> torch.Tensor:
+    """(CO, C, 1, 1, 1) -> (CO, KP): the residual tap at the centre tap's (13)
+    columns of ``narrow_columns``, every other column 0."""
+    c_out, c = wres.shape[:2]
+    return _pack_narrow(wres.reshape(c_out, c), c, True)
+
+
+def narrow_tiles(x_shape) -> int:
+    """Voxel tiles (``NARROW_TILE``, the ragged edge rounded up) of an (B, C,
+    D, H, W) volume."""
+    bsz, _, *vol = x_shape
+    n = bsz
+    for size, edge in zip(vol, NARROW_TILE):
+        n *= -(-size // edge)
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_per_sm(device_index: int, which: int, residual: int, c_out: int, c: int) -> int:
+    """Blocks per SM of the narrow forward (``which`` 0) or filter gradient
+    (1) at these widths (``medseg_narrow_plan``). Cached per library."""
+    per_sm = ctypes.c_int(0)
+    _build.check(_build.lib().medseg_narrow_plan(device_index, which, residual, c_out, c,
+                                                 ctypes.byref(per_sm)),
+                 "narrow conv plan")
+    return per_sm.value
+
+
+def narrow_blocks(device: torch.device, which: int, residual: int, c_out: int,
+                  x_shape) -> int:
+    """Blocks of a narrow launch: as many as fit the SMs, or fewer where the
+    volume has fewer tiles. The forward's statistics and the filter
+    gradient's partials have one slot per block."""
+    per_sm = narrow_per_sm(device.index, which, residual, c_out, x_shape[1])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(narrow_tiles(x_shape), per_sm * sms))
 
 
 def conv_has_kernel(mode: str, c_in: int, c_out: int, dtype: torch.dtype) -> bool:
@@ -335,6 +464,8 @@ def _launch_conv(mode: str, streams, weight, wres, affines, x_channels: int = 0)
         )
     if tc_route(c, c_out, dt, mode):
         return _launch_conv_tc(mode, streams, weight, wres, affines, x_channels)
+    if narrow_tc_route(c, c_out, dt, mode):
+        return _launch_conv_narrow(x0, weight, wres)
     if c_out == SPLIT_C_OUT:
         wres_halves = (None, None) if wres is None else wres.chunk(2)
         halves = [
@@ -474,6 +605,38 @@ def _launch_conv_tc(mode, streams, weight, wres, affines, x_channels):
     _build.check(err, f"conv3x3x3 tensor-core kernel ({mode})")
     _MODE_WRAPPER[mode].launches += 1
     _MODE_WRAPPER[mode].tc_launches += 1
+    return outs if wres is not None else outs[:3]
+
+
+def _launch_conv_narrow(x, weight, wres):
+    """K1 at a narrow input on the tensor cores (``narrow_tc_route``):
+    checks shapes, packs the weights, allocates outputs and launches
+    ``csrc/conv_narrow_tc.cu`` (the conv, then the statistics' finish),
+    adding it to ``launches``, ``tc_launches`` and ``narrow_launches``."""
+    dev, dt = x.device, weight.dtype
+    c_out, c = weight.shape[:2]
+    bsz, _, d, h, w = x.shape
+    _check(x, "input stream 0", (bsz, c, d, h, w), dt, dev)
+    _check(weight, "weight", (c_out, c, 3, 3, 3), dt, dev)
+    if wres is not None:
+        _check(wres, "wres", (c_out, c, 1, 1, 1), dt, dev)
+    residual = int(wres is not None)
+    slots = narrow_blocks(dev, 0, residual, c_out, x.shape)
+    outs, part = _conv_outputs((bsz, c_out, d, h, w), dt, dev, wres is not None, slots)
+    if part.numel() >= 2**31:
+        raise ValueError(f"narrow conv: batch {bsz} too large for its statistics' partial sums")
+    out, s, ss, res, rs, rss = outs
+    w_packed = pack_narrow_weight(weight)
+    wres_packed = None if wres is None else pack_narrow_wres(wres)
+    err = _build.lib().medseg_conv_narrow(
+        dev.index, residual, c_out, _ptr(x), _ptr(w_packed), _ptr(wres_packed), _ptr(out),
+        _ptr(s), _ptr(ss), _ptr(res), _ptr(rs), _ptr(rss), _ptr(part), slots, bsz, c, d, h, w,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "narrow conv tensor-core kernel")
+    conv3x3x3_of.launches += 1
+    conv3x3x3_of.tc_launches += 1
+    conv3x3x3_of.narrow_launches += 1
     return outs if wres is not None else outs[:3]
 
 
@@ -661,6 +824,8 @@ def conv3x3x3_wgrad_of(x, g):
                          f"(and {SPLIT_C_OUT} as two launches)")
     if wgrad_tc_route(c, c_out, dt):
         return _launch_wgrad_tc(x, g)
+    if wgrad_narrow_tc_route(c, c_out, dt):
+        return _launch_wgrad_narrow(x, g)
     if c_out == SPLIT_C_OUT:  # the rows of dW of each half of the cotangent
         return torch.cat([conv3x3x3_wgrad_of(x, half.contiguous()) for half in g.chunk(2, dim=1)])
     _check(x, "x", (bsz, c, d, h, w), dt, dev)
@@ -702,16 +867,43 @@ def _launch_wgrad_tc(x, g):
     return dw
 
 
+def _launch_wgrad_narrow(x, g):
+    """K6 at a narrow input on the tensor cores (``wgrad_narrow_tc_route``):
+    one launch of ``csrc/conv_narrow_tc.cu``'s filter gradient (its blocks'
+    partials, then the fixed-order reduction)."""
+    dev, dt = x.device, x.dtype
+    bsz, c, d, h, w = x.shape
+    c_out = g.shape[1]
+    _check(x, "x", (bsz, c, d, h, w), dt, dev)
+    _check(g, "g", (bsz, c_out, d, h, w), dt, dev)
+    groups = narrow_blocks(dev, 1, 0, c_out, x.shape)
+    partial = torch.empty((groups, c_out, c, 27), dtype=torch.float32, device=dev)
+    dw = torch.empty((c_out, c, 3, 3, 3), dtype=torch.float32, device=dev)
+    err = _build.lib().medseg_wgrad_narrow(
+        dev.index, c_out, _ptr(x), _ptr(g), _ptr(partial), _ptr(dw), bsz, c, d, h, w, groups,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "narrow wgrad tensor-core kernel")
+    conv3x3x3_wgrad_of.launches += 1
+    conv3x3x3_wgrad_of.tc_launches += 1
+    conv3x3x3_wgrad_of.narrow_launches += 1
+    return dw
+
+
 _MODE_WRAPPER = {
     "plain": conv3x3x3_of, "affine_leaky": conv3x3x3_of, "cat2": conv3x3x3_of_cat2,
     "combine": conv3x3x3_of_combine,
 }
 KERNELS = (conv3x3x3_of, conv3x3x3_of_cat2, conv3x3x3_of_combine, outhead_of, outhead_row_of,
            conv3x3x3_wgrad_of)
-for _fn in KERNELS:
-    _fn.launches = _fn.tc_launches = 0
+NARROW_KERNELS = (conv3x3x3_of, conv3x3x3_wgrad_of)  # the wrappers with a narrow-input route
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = fn.tc_launches = 0
+    for fn in NARROW_KERNELS:
+        fn.narrow_launches = 0
+
+
+reset_launches()

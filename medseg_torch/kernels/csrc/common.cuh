@@ -56,4 +56,11 @@ cudaError_t stats_finish(const float* part, int nslots, int nk, int B, int co, i
                          int ntiles, float* s, float* ss, float* rs, float* rss,
                          cudaStream_t stream);
 
+// K6's fixed-order reduction (wgrad_tc.cu): dw[i] = the sum over the
+// producers' partials partial[k * n + i], k = 0 .. groups - 1, in an order
+// fixed by ``groups`` alone; wgrad_tc.cu's and conv_narrow_tc.cu's blocks
+// each write their partial once.
+cudaError_t wgrad_reduce(const float* partial, float* dw, int n, int groups,
+                         cudaStream_t stream);
+
 }  // namespace medseg

@@ -20,9 +20,10 @@
 //   - medseg/kernels/conv3d.py conv3x3x3_flat (_kernel), K9:
 //                                          FLAT     x[ci], fp32 out, no
 //     statistics, for C % 16 == 0 (C <= 128), C_out 16, 32 or 64.
-// The other calls (fp32, C_in of 1 or 4, other widths) keep the CUDA-core
-// kernels of conv_of.cu and conv_flat.cu, picked by the wrapper's shape and
-// dtype predicate (``conv_of.tc_route``).
+// bf16 at C_in <= 8 without a prologue takes conv_narrow_tc.cu; the other
+// calls (fp32, other widths) keep the CUDA-core kernels of conv_of.cu and
+// conv_flat.cu, picked by the wrapper's shape and dtype predicates
+// (``conv_of.tc_route``, ``narrow_tc_route``).
 //
 // What bounds it on the H100: operations, and the staging that feeds them.
 // A 16->16 conv at 4x96^3 is 49 GFLOP (0.050 ms at 989 TFLOP/s) against

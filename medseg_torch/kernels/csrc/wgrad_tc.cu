@@ -8,8 +8,9 @@
 //
 // Replaces the TPU kernel medseg/kernels/conv_of.py conv3x3x3_wgrad_of
 // (_wgrad_kernel), K6, for bf16 with C % 16 == 0 (C <= 64) and CO in {16,
-// 32, 64}; the other calls (fp32, C = 1 at enc1.conv1) keep the CUDA-core
-// kernel of wgrad_of.cu, picked by the wrapper's shape and dtype predicate.
+// 32, 64}; bf16 at C <= 8 takes conv_narrow_tc.cu, the other calls (fp32,
+// other widths) keep the CUDA-core kernel of wgrad_of.cu, picked by the
+// wrapper's shape and dtype predicates.
 //
 // What bounds it on the H100: 2*27*C*CO FLOP per voxel, 49 GFLOP for 16->16
 // at 4x96^3 (0.050 ms at the bf16 tensor-core rate) against 0.23 GB of
@@ -221,13 +222,18 @@ cudaError_t launch(const WgradTcArgs& p, int groups, float* dw, cudaStream_t st)
   wgrad_tc_kernel<CO><<<dim3(p.C / 16, groups), nt, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int n = CO * p.C * 27;
-  wgrad_tc_reduce_kernel<<<(n + RED_X - 1) / RED_X, dim3(RED_X, RED_Y), 0, st>>>(p.partial, dw,
-                                                                                n, groups);
-  return cudaGetLastError();
+  return wgrad_reduce(p.partial, dw, CO * p.C * 27, groups, st);
 }
 
 }  // namespace
+
+cudaError_t wgrad_reduce(const float* partial, float* dw, int n, int groups,
+                         cudaStream_t stream) {
+  wgrad_tc_reduce_kernel<<<(n + RED_X - 1) / RED_X, dim3(RED_X, RED_Y), 0, stream>>>(partial, dw,
+                                                                                    n, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace medseg
 
 extern "C" {

@@ -8,7 +8,7 @@ accumulators); ``brats_cases`` does the same at the BraTS window
 (128^3, four input channels, 8 padded classes); ``training_cases`` for the
 kernels the training step adds (K6, K1's data gradient, K7 and K8);
 ``mri_training_cases`` for the BraTS training step's C_in = 4 convs (K1
-and K6 on the CUDA cores); ``flat_cases`` for K9, the flat per-conv route of the pretraining path
+and K6 at a narrow input); ``flat_cases`` for K9, the flat per-conv route of the pretraining path
 (fp32 output, held to the same output tolerances as K1).
 ``run_case`` calls the wrapper (which launches the kernel on a CUDA device)
 and the plain version, and returns the largest errors, the least time the
@@ -112,6 +112,9 @@ def kernel_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) 
 
     cases = [
         conv_case(f"enc1.conv1 1->{fs} @{batch}x{full}^3", vol(1, full), weight(fs, 1)),
+        # the config-4 walk's batch of 6 windows (the conv's input volume)
+        conv_case(f"enc1.conv1 1->{fs} @6x{full}^3 (config-4 batch)",
+                  randn(6, 1, full, full, full), weight(fs, 1)),
         conv_case(f"enc1.conv1+conv3 4->{fs} @{batch}x{full}^3", vol(4, full), weight(fs, 4),
                   wres=weight(fs, 4, 1)),
         conv_case(f"enc1.conv2 {fs}->{fs} affine @{batch}x{full}^3", vol(fs, full),
@@ -326,9 +329,10 @@ def training_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96
 def mri_training_cases(device, dtype: torch.dtype, *, batch: int = 4,
                        full: int = 128) -> list[Case]:
     """The kernels the BraTS training step (four MRI channels, 128^3 crops,
-    sigmoid DiceCE, so neither K7 nor K8) launches at C_in = 4, on the CUDA
-    cores: enc1.conv1's forward (K1 4->16, no prologue) and its filter
-    gradient (K6 at C = 4)."""
+    sigmoid DiceCE, so neither K7 nor K8) launches at C_in = 4, on the
+    narrow-input tensor-core route in bf16 (the CUDA cores in fp32):
+    enc1.conv1's forward (K1 4->16, no prologue) and its filter gradient (K6
+    at C = 4)."""
     g = torch.Generator().manual_seed(5)
     c_in, c_out = 4, 16
     x = (torch.randn((batch, c_in, full, full, full), generator=g)).to(device=device, dtype=dtype)

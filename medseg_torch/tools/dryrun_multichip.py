@@ -81,15 +81,17 @@ def _model(size: str):
 
 
 def launch_counts() -> dict:
-    """Each kernel wrapper's launches in this process, and ``<name>[tc]``
-    those that took the tensor cores."""
+    """Each kernel wrapper's launches in this process, ``<name>[tc]`` those
+    that took the tensor cores and ``<name>[narrow]`` those that took the
+    narrow-input kernel."""
     from medseg_torch.kernels import conv_flat, conv_of, loss_of
 
     counts = {}
     for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS:
         counts[fn.__name__] = fn.launches
-        if hasattr(fn, "tc_launches"):
-            counts[f"{fn.__name__}[tc]"] = fn.tc_launches
+        for route in ("tc", "narrow"):
+            if hasattr(fn, f"{route}_launches"):
+                counts[f"{fn.__name__}[{route}]"] = getattr(fn, f"{route}_launches")
     return counts
 
 

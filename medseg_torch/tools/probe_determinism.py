@@ -14,8 +14,8 @@ forward twice, and ``Validator.infer_volume`` twice on a 192^3 volume (the
 z-row walk), with the largest logit difference and the share of voxels
 whose argmax agrees. Each line carries the card's name and power limit.
 Exits with 1, after naming them, if any case is not bitwise reproducible.
-``chip_smoke.py``'s determinism phase calls ``kernels`` (K1, K2 and K5) and
-``fused_forward``.
+``chip_smoke.py``'s determinism phase calls ``kernels`` (K1, K2, K5 and K6,
+the narrow-input kernels of K1 and K6 among them) and ``fused_forward``.
 """
 
 from __future__ import annotations
@@ -64,9 +64,11 @@ def kernels(device, card: str, names=None, calls: int = 3, cases_fns=CASES,
                 if names is not None and case.kernel.__name__ not in names:
                     continue
                 tc_before = getattr(case.kernel, "tc_launches", 0)
+                narrow_before = getattr(case.kernel, "narrow_launches", 0)
                 runs = [_call(case) for _ in range(calls)]
                 torch.cuda.synchronize()
-                route = ("tensor cores" if getattr(case.kernel, "tc_launches", 0) > tc_before
+                route = ("narrow tc" if getattr(case.kernel, "narrow_launches", 0) > narrow_before
+                         else "tensor cores" if getattr(case.kernel, "tc_launches", 0) > tc_before
                          else "cuda cores")
                 report = {}
                 for kind, pick in (("outputs", lambda t: t.ndim > 2), ("sums", lambda t: t.ndim <= 2)):

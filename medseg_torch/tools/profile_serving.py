@@ -46,6 +46,9 @@ _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3
 _CONV_KERNEL = re.compile(r"conv3_kernel<[^,]+,\s*(?:\([^)]*\))?(\d)")
 _CONV_TC_KERNEL = re.compile(r"conv_tc_(async_)?kernel<\s*(?:\((?:[^()]|\([^()]*\))*\))?(\d)")
 _CLASSES = (  # (class, pattern on the kernel's name), first match wins
+    # K1 and K6 at a narrow input (C_in <= 8) on the tensor cores
+    ("K1 conv3x3x3_of, narrow tensor cores", re.compile(r"conv_narrow_kernel")),
+    ("K6 conv3x3x3_wgrad_of, narrow tensor cores", re.compile(r"wgrad_narrow_kernel")),
     # K6 on the tensor cores; its CUDA-core route keeps the plain names
     ("K6 conv3x3x3_wgrad_of, tensor cores", re.compile(r"wgrad_tc_(reduce_)?kernel")),
     # K3 and K4: outhead_tc.cu on the tensor cores, outhead_of.cu and

@@ -1,4 +1,4 @@
-"""K1, K2, K3, K4, K5, K7, K8 and K9 at the main path's shapes, timed on one tree of
+"""K1, K2, K3, K4, K5, K6, K7, K8 and K9 at the main path's shapes, timed on one tree of
 the repository, so that two trees can be compared in one call on one card
 (parent, change, change, parent):
 
@@ -11,6 +11,12 @@ beside ``F.conv3d`` on the same inputs for the convs (contiguous and
 channels_last_3d; for K5 over the concatenated input, without its residual
 tap and statistics; fp32 with TF32 off); K3, K4, K7 and K8 have no library
 call (K1 and K2 beside ``F.conv3d`` too, K2 over its concatenated input).
+The narrow-input cases of K1 and K6 (encoder1.conv1: C_in 1 at the CT
+shapes, 4 at the BraTS window, with and without the conv3 tap) take the
+route each tree has for them, K6 beside ``torch.nn.grad.conv3d_weight``,
+and are also timed by their device kernels' durations in the profiler's
+trace (the conv or filter gradient and its finish; ``DEVICE_KERNELS``):
+their wrapper's host time is of the order of their device time.
 K7 and K8 (the config-5 case in bf16 and fp32, 2 classes, a ragged
 volume) are also timed by their device kernels' durations in the
 profiler's trace (``kernel_check.device_ms`` of the tree holding this file,
@@ -43,6 +49,12 @@ CASES = [
     ("K1 16->16 affine @6x96^3 (config-4 batch)", "affine", 16, 16, 6, 96, BF),
     ("K1 BraTS 16->16 affine @4x128^3", "affine", 16, 16, 4, 128, BF),
     ("K1 fp32 1->16 @4x96^3 (CUDA cores)", "plain", 1, 16, 4, 96, F32),
+    ("K1 1->16 @4x96^3 (enc1.conv1, config-5 step)", "plain", 1, 16, 4, 96, BF),
+    ("K1 1->16 @6x96^3 (enc1.conv1, config-4 batch)", "plain", 1, 16, 6, 96, BF),
+    ("K1 BraTS 4->16 + conv3 @4x128^3 (enc1.conv1, config 8)", "plain_res", 4, 16, 4, 128, BF),
+    ("K1 BraTS 4->16 @4x128^3 (enc1.conv1, BraTS step)", "plain", 4, 16, 4, 128, BF),
+    ("K6 1->16 @4x96^3 (enc1.conv1, config-5 step)", "wgrad", 1, 16, 4, 96, BF),
+    ("K6 BraTS 4->16 @4x128^3 (enc1.conv1, BraTS step)", "wgrad", 4, 16, 4, 128, BF),
     ("K2 (16+16)->16 x1 @4x96^3", "combine1", 32, 16, 4, 96, BF),
     ("K2 (16+16)->16 x1 @6x96^3 (config-4 batch)", "combine1", 32, 16, 6, 96, BF),
     ("K2 (16+16)->16 x16 @4x96^3", "combine", 32, 16, 4, 96, BF),
@@ -85,20 +97,38 @@ LOSS_CASES = [
     for kernel, kn in (("sums", "K7"), ("bwd", "K8"))
 ]
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+# the device kernels of a K1 or K6 call on any route (either tree)
+DEVICE_KERNELS = {"plain": r"conv3_kernel|conv_tc_kernel|conv_narrow_kernel|stats_finish",
+                  "wgrad": r"wgrad"}
+DEVICE_KERNELS["plain_res"] = DEVICE_KERNELS["plain"]
 
 
 def conv_case(conv_of, conv_flat, rand, kernel, c, c_out, bsz, edge):
-    """(wrapper, call, FLOP, bytes, library calls) of a K1, K2, K5 or K9
-    case."""
+    """(wrapper, call, FLOP, bytes, (library calls, plain version or None))
+    of a K1, K2, K5, K6 or K9 case."""
     w = rand(c_out, c, 3, 3, 3, scale=(27 * c) ** -0.5)
     vol = (edge, edge, edge)
-    if kernel in ("affine", "plain"):
+    plain = None  # the plain version, timed for the narrow-input cases
+    if kernel in ("affine", "plain", "plain_res"):
         x = rand(bsz, c, *vol)
         coeff = [rand(bsz, c, dt=F32).abs() + 0.5, rand(bsz, c, dt=F32)] if kernel == "affine" else []
+        kw = {"wres": rand(c_out, c, 1, 1, 1, scale=c ** -0.5)} if kernel == "plain_res" else {}
         wrapper = conv_of.conv3x3x3_of
-        call = lambda: wrapper(x, w, *coeff)  # noqa: E731
+        call = lambda: wrapper(x, w, *coeff, **kw)  # noqa: E731
+        plain = None if coeff else (lambda: conv_of.conv3x3x3_of_plain(x, w, **kw))  # noqa: E731
+        outs = 2 if kw else 1
+        flops = 2.0 * (27 + outs - 1) * c * c_out * bsz * edge**3
+        nbytes = (x.numel() + outs * bsz * c_out * edge**3) * x.element_size()
+    elif kernel == "wgrad":
+        x, cot = rand(bsz, c, *vol), rand(bsz, c_out, *vol)
+        wrapper = conv_of.conv3x3x3_wgrad_of
+        call = lambda: wrapper(x, cot)  # noqa: E731
         flops = 2.0 * 27 * c * c_out * bsz * edge**3
-        nbytes = (x.numel() + bsz * c_out * edge**3) * x.element_size()
+        nbytes = (x.numel() + cot.numel()) * x.element_size() + 4 * w.numel()
+        shape = tuple(w.shape)
+        lib = lambda: torch.nn.grad.conv3d_weight(x, shape, cot, padding=1)  # noqa: E731
+        return wrapper, call, flops, nbytes, (lib, None, lambda: conv_of.conv3x3x3_wgrad_of_plain(
+            x, cot))
     elif kernel.startswith("combine"):
         half = c // 2
         up, y = rand(bsz, half, *vol), rand(bsz, half, *vol)
@@ -126,7 +156,7 @@ def conv_case(conv_of, conv_flat, rand, kernel, c, c_out, bsz, edge):
         flops = 2.0 * 27 * c * c_out * bsz * edge**3
         nbytes = x.numel() * x.element_size() + 4 * bsz * c_out * edge**3
     x_cl, w_cl = (t.to(memory_format=torch.channels_last_3d) for t in (x, w))
-    libs = (lambda: F.conv3d(x, w, padding=1), lambda: F.conv3d(x_cl, w_cl, padding=1))
+    libs = (lambda: F.conv3d(x, w, padding=1), lambda: F.conv3d(x_cl, w_cl, padding=1), plain)
     return wrapper, call, flops, nbytes, libs
 
 
@@ -192,7 +222,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5,K7,K8,K9",
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5,K6,K7,K8,K9",
                     help="the kernels whose cases run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -226,31 +256,43 @@ def main(argv=None) -> int:
         def rand(*shape, scale=1.0, dt=dt):
             return (torch.randn(shape, generator=g) * scale).to(dev, dt)
 
-        libs = (None, None)
-        if kernel in ("cat2", "flat", "affine", "plain", "combine", "combine1"):
+        libs = (None, None, None)
+        if kernel in ("cat2", "flat", "affine", "plain", "plain_res", "wgrad", "combine",
+                      "combine1"):
             wrapper, call, flops, nbytes, libs = conv_case(conv_of, conv_flat, rand, kernel, c,
                                                            width, batch, edge)
         else:
             wrapper, call, flops, nbytes = head_case(conv_of, rand, g, dev, kernel, c, width,
                                                      batch, edge, acc_dtype[0])
         tc_before = getattr(wrapper, "tc_launches", 0)
+        narrow_before = getattr(wrapper, "narrow_launches", 0)
         launches_before = wrapper.launches
         call()
         torch.cuda.synchronize()
         tc = getattr(wrapper, "tc_launches", 0) > tc_before
+        narrow = getattr(wrapper, "narrow_launches", 0) > narrow_before
         launches = wrapper.launches - launches_before
         ms = kernel_check.time_ms(call)
-        lib_ms, lib_cl_ms = (None if lib is None else kernel_check.time_ms(lib) for lib in libs)
+        lib_ms, lib_cl_ms, plain_ms = (None if lib is None else kernel_check.time_ms(lib)
+                                       for lib in libs)
+        dev_ms = None
+        if kernel in DEVICE_KERNELS and dt == BF:
+            dev_ms = this_check.device_ms(call, DEVICE_KERNELS[kernel])
         flop_s = flops / kernel_check.PEAK_FLOPS[dt]
         byte_s = nbytes / kernel_check.HBM_BYTES_PER_S
         bound = 1e3 * max(flop_s, byte_s)
-        row = {"case": name, "tree": args.label, "route": "tensor cores" if tc else "cuda cores",
+        route = "narrow tensor cores" if narrow else "tensor cores" if tc else "cuda cores"
+        row = {"case": name, "tree": args.label, "route": route,
                "launches": launches, "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": bound,
                "bound_by": "operations" if flop_s >= byte_s else "bytes",
                "gbytes_per_s": nbytes / ms / 1e6, "library_ms": lib_ms,
-               "library_cl_ms": lib_cl_ms, "card": card}
+               "library_cl_ms": lib_cl_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+               "card": card}
         rows.append(row)
-        lib = "" if lib_ms is None else f" F.conv3d {lib_ms:.3f} / channels_last {lib_cl_ms:.3f}"
+        lib = ("" if lib_ms is None else f" conv3d_weight {lib_ms:.3f}" if lib_cl_ms is None
+               else f" F.conv3d {lib_ms:.3f} / channels_last {lib_cl_ms:.3f}")
+        lib += "" if plain_ms is None else f" plain {plain_ms:.3f}"
+        lib += "" if dev_ms is None else f" device {dev_ms:.4f}"
         print(f"[time_routes {args.label}] {name:44s} {row['route']:12s} x{launches} "
               f"{ms:8.3f} ms ({row['tflops']:6.1f} TFLOP/s, {row['gbytes_per_s']:6.0f} GB/s) "
               f"bound {bound:.3f} ({row['bound_by']}){lib} [{card}]", flush=True)

@@ -365,6 +365,76 @@ def test_tc_two_stream_modes_match_plain(device, mode, c, c_out, x_channels):
 
 
 ASYNC_VOLUME = (9, 17, 24)  # ragged against the tile, W % 8 == 0: the cp.async staging
+# the narrow kernels' 2x4x64 tiles: odd D, ragged H, W % 8 != 0 over two x
+# tiles (2-byte stores and loads), and W % 8 == 0 with a half-empty x tile
+NARROW_VOLUMES = [(9, 13, 70), (5, 6, 96)]
+NARROW_WIDTHS = [(1, 16), (2, 16), (4, 16), (8, 16), (1, 32), (4, 32), (8, 32), (3, 16)]
+
+
+@pytest.mark.parametrize("vol", NARROW_VOLUMES, ids=["w70", "w96"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "res"])
+@pytest.mark.parametrize("c_in,c_out", NARROW_WIDTHS)
+def test_narrow_conv_matches_plain(device, c_in, c_out, residual, vol):
+    """K1 at a narrow input (``csrc/conv_narrow_tc.cu``) against its plain
+    version, three batch elements, with and without the residual tap: one
+    launch, on the tensor cores, by the narrow route; a second call gives the
+    same bits (the statistics' fixed order)."""
+    g = torch.Generator().manual_seed(c_in * 100 + c_out + vol[2])
+    bf = torch.bfloat16
+    x = _randn(g, 3, c_in, *vol).to(device, bf)
+    w = _randn(g, c_out, c_in, 3, 3, 3, scale=(27 * c_in) ** -0.5).to(device, bf)
+    kwargs = {"wres": _randn(g, c_out, c_in, 1, 1, 1, scale=c_in ** -0.5).to(device, bf)
+              } if residual else {}
+    case = kernel_check.Case("narrow", conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_plain, (x, w),
+                             kwargs)
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    k1 = conv_of.conv3x3x3_of
+    assert k1.launches == k1.tc_launches == k1.narrow_launches == 1
+    first = [t.clone() for t in k1(x, w, **kwargs)]
+    assert all(torch.equal(a, b) for a, b in zip(first, k1(x, w, **kwargs)))
+
+
+@pytest.mark.parametrize("vol", NARROW_VOLUMES, ids=["w70", "w96"])
+@pytest.mark.parametrize("c,c_out", NARROW_WIDTHS)
+def test_narrow_wgrad_matches_plain(device, c, c_out, vol):
+    """K6 at a narrow input against its plain version, three batch
+    elements: one launch by the narrow route, bitwise from call to call."""
+    g = torch.Generator().manual_seed(c * 10 + c_out + vol[2])
+    bf = torch.bfloat16
+    x = _randn(g, 3, c, *vol).to(device, bf)
+    cot = _randn(g, 3, c_out, *vol).to(device, bf)
+    case = kernel_check.Case("narrow wgrad", conv_of.conv3x3x3_wgrad_of,
+                             conv_of.conv3x3x3_wgrad_of_plain, (x, cot))
+    conv_of.reset_launches()
+    r = kernel_check.run_case(case, bf)
+    assert r["ok"], r
+    k6 = conv_of.conv3x3x3_wgrad_of
+    assert k6.launches == k6.tc_launches == k6.narrow_launches == 1
+    assert torch.equal(k6(x, cot), k6(x, cot))
+
+
+def test_narrow_routes_walk_many_tiles(device):
+    """Both narrow kernels over more tiles than they have blocks (2 x 96^3:
+    4608 tiles), so that blocks cross batch elements and sum many tiles."""
+    g = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    x = _randn(g, 2, 4, 96, 96, 96).to(device, bf)
+    w = _randn(g, 16, 4, 3, 3, 3, scale=108 ** -0.5).to(device, bf)
+    wres = _randn(g, 16, 4, 1, 1, 1, scale=0.5).to(device, bf)
+    cot = _randn(g, 2, 16, 96, 96, 96).to(device, bf)
+    assert conv_of.narrow_tiles(x.shape) == 4608
+    conv_of.reset_launches()
+    for case in (
+        kernel_check.Case("narrow", conv_of.conv3x3x3_of, conv_of.conv3x3x3_of_plain, (x, w),
+                          {"wres": wres}),
+        kernel_check.Case("narrow wgrad", conv_of.conv3x3x3_wgrad_of,
+                          conv_of.conv3x3x3_wgrad_of_plain, (x, cot)),
+    ):
+        r = kernel_check.run_case(case, bf)
+        assert r["ok"], r
+    assert conv_of.conv3x3x3_of.narrow_launches == conv_of.conv3x3x3_wgrad_of.narrow_launches == 1
 
 
 @pytest.mark.parametrize("vol", [ASYNC_VOLUME, TC_VOLUME], ids=["async", "registers"])
@@ -467,8 +537,8 @@ def test_tc_two_stream_modes_walk_many_tiles(device):
 
 def test_routes_count_tc_launches(device):
     """bf16 with C_in % 16 == 0 takes the tensor cores, one launch even at
-    64 output channels; fp32 and C_in = 1 take the CUDA cores (64 wide: two
-    launches). K5 and K2 take the tensor cores in bf16 at the decoder's
+    64 output channels; C_in = 1 takes the narrow-input tensor-core kernel
+    in bf16; fp32 takes the CUDA cores (64 wide: two launches). K5 and K2 take the tensor cores in bf16 at the decoder's
     widths (K5 up to C = 128, feature size 32), the CUDA cores in fp32; K9
     takes them in bf16 at C % 16 == 0, the CUDA cores in fp32 and at C =
     24."""
@@ -506,9 +576,9 @@ def test_routes_count_tc_launches(device):
     k5, k2 = conv_of.conv3x3x3_of_cat2, conv_of.conv3x3x3_of_combine
     bf, f32 = torch.bfloat16, torch.float32
     for fn, wrapper, c_in, c_out, dtype, launches, tc in (
-        (conv, k1, 16, 16, bf, 1, 1), (conv, k1, 16, 16, f32, 1, 0), (conv, k1, 1, 16, bf, 1, 0),
+        (conv, k1, 16, 16, bf, 1, 1), (conv, k1, 16, 16, f32, 1, 0), (conv, k1, 1, 16, bf, 1, 1),
         (conv, k1, 32, 64, bf, 1, 1), (conv, k1, 32, 64, f32, 2, 0),
-        (wgrad, k6, 16, 16, bf, 1, 1), (wgrad, k6, 16, 16, f32, 1, 0), (wgrad, k6, 1, 16, bf, 1, 0),
+        (wgrad, k6, 16, 16, bf, 1, 1), (wgrad, k6, 16, 16, f32, 1, 0), (wgrad, k6, 1, 16, bf, 1, 1),
         (wgrad, k6, 32, 64, bf, 1, 1), (wgrad, k6, 32, 64, f32, 2, 0),
         (cat2, k5, 64, 32, bf, 1, 1), (cat2, k5, 64, 32, f32, 1, 0), (cat2, k5, 128, 64, bf, 1, 1),
         (cat2, k5, 128, 64, f32, 2, 0), (cat2, k5, 128, 32, bf, 1, 1),
@@ -575,11 +645,12 @@ def test_each_wrapper_counts_its_launches(device):
         case.kernel(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in conv_of.KERNELS}
-    # K4: one launch per case (six windows each: fp32 and bf16 accumulators,
-    # and the row with an x-start off 8 voxels); K5: (32+32)->32 once,
-    # (64+64)->64 as two 32-wide launches in fp32
+    # K1: enc1.conv1 at batches 4 and 6, enc1.conv1 + conv3, three 16->16 or
+    # 32->32 convs; K4: one launch per case (six windows each: fp32 and bf16
+    # accumulators, and the row with an x-start off 8 voxels); K5:
+    # (32+32)->32 once, (64+64)->64 as two 32-wide launches in fp32
     assert counts == {
-        "conv3x3x3_of": 5, "conv3x3x3_of_cat2": 3, "conv3x3x3_of_combine": 2, "outhead_of": 1,
+        "conv3x3x3_of": 6, "conv3x3x3_of_cat2": 3, "conv3x3x3_of_combine": 2, "outhead_of": 1,
         "outhead_row_of": 3, "conv3x3x3_wgrad_of": 0,
     }
 
@@ -845,8 +916,8 @@ def test_widths_without_kernels_serve_and_train_through_the_library(device, feat
 
 @DTYPES
 def test_mri_training_kernels_match_plain(device, dtype):
-    """The BraTS step's C_in = 4 cases (K1 4->16 and K6 at C = 4, CUDA
-    cores), cut to 16^3."""
+    """The BraTS step's C_in = 4 cases (K1 4->16 and K6 at C = 4: the
+    narrow tensor-core kernel in bf16, the CUDA cores in fp32), cut to 16^3."""
     cases = kernel_check.mri_training_cases(device, dtype, batch=1, full=16)
     results = [kernel_check.run_case(case, dtype) for case in cases]
     bad = [r for r in results if not r["ok"]]

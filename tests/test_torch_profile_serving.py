@@ -67,6 +67,11 @@ from medseg_torch.tools import profile_serving as ps
     ("nvjet_tst_64x80_64x11_2x1_v_bz_bias_TNT", "cuBLAS/cuDNN"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float, false>",
      "layer norm"),
+    ("void medseg::(anonymous namespace)::conv_narrow_kernel<1, 16, false>"
+     "(medseg::(anonymous namespace)::NarrowArgs)", "K1 conv3x3x3_of, narrow tensor cores"),
+    ("void medseg::(anonymous namespace)::wgrad_narrow_kernel<4, 16>"
+     "(medseg::(anonymous namespace)::WgradNarrowArgs)",
+     "K6 conv3x3x3_wgrad_of, narrow tensor cores"),
     ("some_unknown_kernel", "other"),
 ])
 def test_kernel_class(name, cls):

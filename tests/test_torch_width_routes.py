@@ -22,6 +22,11 @@ JAX package routes such widths to XLA or flax.
   feature size 32's dec3.conv1 takes the tensor cores in bf16 on both
   routes, fp32 stays on the CUDA cores, K1, K2 and K6 still stop at 64, and
   every width that had a kernel before the widening still has one.
+- The narrow-input route of K1 and K6 (``narrow_tc_route``,
+  ``wgrad_narrow_tc_route``: C_in <= 8) inside the width table, which it
+  leaves as it was: of a UNETR's convs only encoder1.conv1 at feature sizes
+  16 and 32 takes it, in bf16 without a prologue, where the table already
+  had a kernel and ``train_route`` already routed the conv.
 - K3 and K4's tensor-core route (``outhead_tc_route``) inside their width
   table, which it leaves as it was (K3: C <= 64, any K_pad; K4: C <= 32,
   K_pad <= 32): the chain's out head at feature sizes 16 and 32 and 4 or 14
@@ -215,6 +220,23 @@ def test_no_width_lost_its_kernel(mode, dtype):
     for c in (8, 16, 32, 64, 128, 136):
         for c_out in (16, 32, 48, 64, 128):  # K9's CUDA-core widths stay the table
             assert conv_flat.has_kernel(c, c_out) == (c % 8 == 0 and c <= 128 and c_out % 16 == 0)
+
+
+@pytest.mark.parametrize("c_in", [1, 4])
+@pytest.mark.parametrize("fs", FEATURE_SIZES)
+def test_narrow_route_within_the_width_table(fs, c_in):
+    for name, shape, c_out, input_grad in unetr_convs(fs, c_in):
+        c = shape[1]
+        narrow = conv_of.narrow_tc_route(c, c_out, BF)
+        assert narrow == (name == "encoder1.conv1" and fs in (16, 32)), (name, c, c_out)
+        assert conv_of.wgrad_narrow_tc_route(c, c_out, BF) == narrow
+        assert not (narrow and conv_of.tc_route(c, c_out, BF))
+        assert not conv_of.narrow_tc_route(c, c_out, torch.float32)
+        assert not conv_of.narrow_tc_route(c, c_out, BF, "affine_leaky")
+        if narrow:
+            assert conv_of.conv_has_kernel("plain", c, c_out, BF)
+            assert conv_of.wgrad_has_kernel(c, c_out, BF)
+            assert conv3d.train_route(shape, c_out, BF, input_grad=input_grad, device="cuda")
 
 
 @pytest.mark.parametrize("c", [8, 16, 24, 32, 48, 64, 80])
