@@ -67,6 +67,31 @@ and on BraTS. Phases, each raising on failure:
    whose losses must be finite and fall and whose kernel launches are
    counted (K1 and K6 only on the tensor cores, both narrow kernels
    launched);
+9b. routes: each training path on the kernels and on the library, in this
+    process (``library_route``: the port's route constants and the loss's
+    predicate patched for the run, as the JAX package's ablation switches
+    route its step; ``ROUTE_RUNS``): config 5's step by default, with every
+    3x3x3 conv on cuDNN (no K1 or K6; the JAX ``MEDSEG_TRAIN_CONV=xla``),
+    the filter gradients on ``conv3d_weight`` (no K6; K1's data gradient as
+    by default; ``MEDSEG_WGRAD=xla``), the plain DiceCE (no K7 or K8;
+    ``MEDSEG_FUSED_LOSS=0``) and all three, each run's loss within 1e-3 and
+    global gradient within 5e-2 relative L2 of the default's, the default
+    launching all four; config 2's step (BASELINE: spleen, 2 classes, batch
+    2 of 96^3, bf16, remat) by default (K7 and K8 at K = 2) and all on the
+    library, both against its fp32 module at the same bounds; per run the
+    host ms of 6 steps after a warm one, each to a synchronize (median and
+    range), the device busy ms of one profiled step (the union of its
+    kernels' intervals in the profiler's trace; the hand kernels', cuDNN
+    and cuBLAS's and the elementwise kernels' shares), the idle share
+    (1 - busy / median host) and the hand kernels' launches per step; then
+    config 4's volume on the fused z-row path, on the module forward through
+    the flat walk (``Validator(use_fast_path=False)``: SDPA, cuBLAS and
+    cuDNN, no hand kernel, the eager baseline; logits within 5e-2 relative
+    L2 of the fused path's) and on the fused path with the ViT's GELU on
+    tanh (``tanh_gelu``, the JAX package's serving choice on a TPU; relative
+    L2 and argmax agreement against the exact fused path, recorded, not
+    bounded): two timed volumes after a warm one, busy ms and idle share of
+    each;
 10. flat-kernel: K9 against its plain version at the flat route's shape
     (128 -> 64 at 4x48^3) and two more, fp32 and bf16, timed, with the
     route each took (every bf16 case on the tensor cores, mode FLAT);
@@ -133,7 +158,8 @@ and on BraTS. Phases, each raising on failure:
     checkpoints, one log per rank.
 
 The line before the last is the JSON kernel table (K1-K6 and K9 with the
-launches of their tensor-core route beside all their launches, the
+launches of their tensor-core route beside all their launches by path,
+path ``config-2`` the default config-2 run's 6 timed steps, the
 route their timed case took, and each kernel's fp32 case times beside the
 bf16 ones; the narrow-input kernels of K1 and K6 as rows of their own); the
 last line is ``{"ok": true, "device": {...}}``. Imports
@@ -142,6 +168,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -215,6 +242,19 @@ TRAIN_LOSS_REL_BOUND = 1e-3
 TRAIN_GRAD_REL_L2_BOUND = 5e-2
 TRAIN_STEPS = 10
 TRAIN_BATCH, CROP, N_CLASSES = 4, 96, 14  # BASELINE config 5
+# phase 9b: each training path on the kernels and on the library
+# (``library_route``); ``ROUTE_STEPS`` timed steps per run after a warm one
+ROUTE_STEPS = 6
+ROUTE_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd")
+ROUTE_CONFIGS = {"config-5": (N_CLASSES, TRAIN_BATCH), "config-2": (2, 2)}  # classes, batch
+ROUTE_RUNS = {  # run -> (the parts on the library, the kernels it must not launch)
+    "default": ((), ()),
+    "cudnn-convs": (("convs",), ("conv3x3x3_of", "conv3x3x3_wgrad_of")),
+    "cudnn-wgrad": (("wgrad",), ("conv3x3x3_wgrad_of",)),
+    "plain-loss": (("loss",), ("dice_ce_sums", "dice_ce_bwd")),
+    "all-library": (("convs", "wgrad", "loss"), ROUTE_KERNELS),
+}
+CONFIG4_VOLUME = (512, 512, 160)
 ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
@@ -959,6 +999,277 @@ def phase_train(device, card: str) -> dict:
         raise RuntimeError(f"kernels not launched in the training steps: {missing}")
     require_tc_only(launches, "the config-5 steps", TRAIN_TC_ONLY)
     return launches
+
+
+# ---- phase 9b: each path on the kernels and on the library ----------------
+
+
+def device_busy(fn) -> dict:
+    """One call of ``fn`` under the profiler (device activity only): the
+    union of its kernels' intervals in ms (``busy_ms``), their count and
+    their summed ms by class (``profile_serving.kernel_class``)."""
+    from medseg_torch.kernels.kernel_check import trace_kernels
+    from medseg_torch.tools.profile_serving import _busy_us, kernel_class
+
+    events = trace_kernels(fn)
+    by_class: dict = {}
+    for e in events:
+        cls = kernel_class(e["name"])
+        by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1e3
+    busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
+    return {"busy_ms": busy / 1e3, "kernels": len(events), "by_class": by_class}
+
+
+def library_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The filter gradient (C_out, C_in, 3, 3, 3) of a same-pad 3x3x3 conv
+    by the library's conv in place of K6: on the card cuDNN on the bf16
+    operands (fp32 sums, the numerics class of the JAX package's
+    ``_conv_dk``), on the CPU on fp32 copies of them."""
+    if not x.is_cuda:
+        x, g = x.float(), g.float()
+    return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
+
+
+@contextlib.contextmanager
+def library_route(parts=()):
+    """Within the block the parts of the training step named in ``parts``
+    take the library in place of the hand kernels, as the JAX package's
+    ablation switches do on its side: "convs" every 3x3x3 conv on
+    ``F.conv3d`` (``conv3d.OF_MIN_HW`` past every plane; its
+    ``MEDSEG_TRAIN_CONV=xla``), "wgrad" the routed convs' filter gradient on
+    ``library_wgrad`` with K1's data gradient kept (``MEDSEG_WGRAD=xla``),
+    "loss" the CT loss on the plain ``dice_ce_loss``
+    (``MEDSEG_FUSED_LOSS=0``). Restores the port after."""
+    from medseg_torch.engine import train
+    from medseg_torch.kernels import conv3d, conv_of
+
+    patches = {"convs": (conv3d, "OF_MIN_HW", float("inf")),
+               "wgrad": (conv_of, "conv3x3x3_wgrad_of", library_wgrad),
+               "loss": (train, "fused_loss_supported", lambda *args: False)}
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in (patches[part] for part in parts)]
+    try:
+        for part in parts:
+            module, name, value = patches[part]
+            setattr(module, name, value)
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+
+
+@contextlib.contextmanager
+def tanh_gelu(model):
+    """The ViT's MLPs on the tanh GELU within the block (the JAX package's
+    serving ``gelu_approx``, which it takes on a TPU backend only); exact
+    again after."""
+    mlps = [block.mlp for block in model.vit.blocks]
+    saved = [mlp.approximate for mlp in mlps]
+    try:
+        for mlp in mlps:
+            mlp.approximate = "tanh"
+        yield
+    finally:
+        for mlp, approximate in zip(mlps, saved):
+            mlp.approximate = approximate
+
+
+def route_step_inputs(n_classes: int, batch: int, device):
+    """UNETR-B/16 (bf16, remat) with ``n_classes`` outputs, its AdamW state
+    (lr 1e-4, weight decay 1e-5) and one batch of 96^3 crops, all from seed
+    0 (config 5: 14 classes, batch 4, the same weights and batch as phase
+    9; config 2: 2 classes, batch 2)."""
+    from medseg_torch.engine.state import create_train_state
+    from medseg_torch.models.unetr import unetr_b16
+
+    g = torch.Generator().manual_seed(0)
+    model = unetr_b16(1, n_classes, CROP, dtype=torch.bfloat16, remat=True)
+    state = create_train_state(model, generator=g, learning_rate=1e-4, weight_decay=1e-5,
+                               device=device)
+    image = torch.randn((batch, 1, CROP, CROP, CROP), generator=g).to(device)
+    label = torch.randint(0, n_classes, (batch, CROP, CROP, CROP), generator=g,
+                          dtype=torch.int32).to(device)
+    return model, state, {"image": image, "label": label}
+
+
+def flat_grad(model) -> torch.Tensor:
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().ravel()
+                      for p in model.parameters()])
+
+
+def measure_route(n_classes: int, batch: int, device) -> dict:
+    """On the route in force: the loss and the flattened gradient at the
+    seed's weights, then ``make_train_step``: one warm step,
+    ``ROUTE_STEPS`` timed one by one (host ms of each, to a synchronize;
+    the kernels' launches over them) and one profiled (device busy ms)."""
+    from medseg_torch.engine.train import make_loss_fn, make_train_step
+
+    model, state, b = route_step_inputs(n_classes, batch, device)
+    loss = make_loss_fn("ct")(model, b["image"], b["label"])
+    loss.backward()
+    result = {"loss": loss.item(), "grad": flat_grad(model)}
+    model.zero_grad(set_to_none=True)
+    step = make_train_step(model, task="ct")
+    state, _ = step(state, b)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    for _ in range(ROUTE_STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    result["host_ms"] = times
+    result["launches"] = all_launches()
+    result.update(device_busy(lambda: step(state, b)))
+    del model, state, b, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def route_line(label: str, r: dict, card: str, unit: str = "step") -> str:
+    """One run's host ms per step or volume (median, min-max), device busy
+    ms (of one profiled step or volume; the hand kernels', the library's
+    convs and GEMMs and the elementwise kernels' summed ms), idle share
+    (1 - busy / median host) and launches of the hand kernels."""
+    host = float(np.median(r["host_ms"]))
+    per = r.get("per", ROUTE_STEPS)
+    launches = {k: v // per for k, v in r["launches"].items() if v and "[" not in k}
+    hand = sum(ms for cls, ms in r["by_class"].items() if cls[0] == "K" and cls[1].isdigit())
+    return (f"[routes] {label}: host {host:.2f} ms/{unit} (median of {len(r['host_ms'])}, "
+            f"{min(r['host_ms']):.2f}-{max(r['host_ms']):.2f}), device busy {r['busy_ms']:.2f} ms "
+            f"({r['kernels']} kernels; hand {hand:.2f}, cuBLAS/cuDNN "
+            f"{r['by_class'].get('cuBLAS/cuDNN', 0.0):.2f}, elementwise "
+            f"{r['by_class'].get('elementwise', 0.0):.2f}), idle {100 * (1 - r['busy_ms'] / host):.1f}%"
+            f"; hand kernels per {unit} {launches} [{card}]")
+
+
+def route_diff(r: dict, ref: dict) -> str:
+    return (f"; vs default host {np.median(r['host_ms']) - np.median(ref['host_ms']):+.2f} ms, "
+            f"busy {r['busy_ms'] - ref['busy_ms']:+.2f} ms")
+
+
+def check_route(label: str, r: dict, ref: dict, card: str, ref_label: str) -> None:
+    loss_err = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_err = rel_l2(r["grad"], ref["grad"])
+    log(f"[routes] {label}: loss {r['loss']:.6f} vs {ref_label} {ref['loss']:.6f}, rel err "
+        f"{loss_err:.3e} (bound {TRAIN_LOSS_REL_BOUND}); global gradient rel L2 {grad_err:.3e} "
+        f"(bound {TRAIN_GRAD_REL_L2_BOUND}) [{card}]")
+    if not (loss_err <= TRAIN_LOSS_REL_BOUND and grad_err <= TRAIN_GRAD_REL_L2_BOUND):
+        raise RuntimeError(f"routes, {label}: loss rel err {loss_err}, gradient rel L2 {grad_err}")
+
+
+def check_replaced(label: str, r: dict, default: dict, replaced) -> None:
+    """The run launched none of the kernels its library parts replace and
+    the others as often as the default did ("wgrad": K1's data gradient
+    still runs)."""
+    bad = {k: (r["launches"][k], default["launches"][k]) for k in ROUTE_KERNELS
+           if r["launches"][k] != (0 if k in replaced else default["launches"][k])}
+    if bad:
+        raise RuntimeError(f"routes, {label}: (launches, default's) {bad}; replaced {replaced}")
+
+
+def phase_routes(device, card: str) -> dict:
+    """Config 5's step on each route of ``ROUTE_RUNS``, config 2's step on
+    the kernels and on the library against its fp32 module, and config 4's
+    volume on the fused path, on the module forward (the eager baseline) and
+    with the tanh GELU. Returns the default config-2 step's launches."""
+    from medseg_torch.ops.losses import dice_ce_loss
+
+    runs = {}
+    for name, (parts, _) in ROUTE_RUNS.items():
+        with library_route(parts):
+            runs[name] = measure_route(*ROUTE_CONFIGS["config-5"], device)
+
+    # config 2: the fp32 module on the library, then both routes' steps
+    model, _, b = route_step_inputs(*ROUTE_CONFIGS["config-2"], device)
+    ref = fp32_twin(model)
+    del model
+    with library_route(("convs",)):  # cuDNN everywhere
+        loss = dice_ce_loss(ref(b["image"], return_encoder_features=False), b["label"],
+                            softmax=True, to_onehot_y=True)
+        loss.backward()
+    config2_ref = {"loss": loss.item(), "grad": flat_grad(ref)}
+    del ref, loss, b
+    torch.cuda.empty_cache()
+    config2 = {}
+    for name in ("default", "all-library"):
+        with library_route(ROUTE_RUNS[name][0]):
+            config2[name] = measure_route(*ROUTE_CONFIGS["config-2"], device)
+
+    default = runs["default"]
+    missing = [k for k in ROUTE_KERNELS if not default["launches"][k]]
+    if missing:
+        raise RuntimeError(f"routes: the default config-5 step did not launch {missing}")
+    for name, (_, replaced) in ROUTE_RUNS.items():
+        r = runs[name]
+        log(route_line(f"config 5 {name}", r, card)
+            + ("" if name == "default" else route_diff(r, default)))
+        if name != "default":
+            check_route(f"config 5 {name}", r, default, card, "default")
+            check_replaced(f"config 5 {name}", r, default, replaced)
+    for name, r in config2.items():
+        log(route_line(f"config 2 {name}", r, card)
+            + ("" if name == "default" else route_diff(r, config2["default"])))
+        check_route(f"config 2 {name}", r, config2_ref, card, "fp32 module")
+    missing = [k for k in ROUTE_KERNELS if not config2["default"]["launches"][k]]
+    if missing:
+        raise RuntimeError(f"routes: the default config-2 step did not launch {missing}")
+    check_replaced("config 2 all-library", config2["all-library"], config2["default"],
+                   ROUTE_KERNELS)
+    launches = config2["default"]["launches"]
+    del runs, config2, config2_ref
+    torch.cuda.empty_cache()
+    routes_serving(device, card)
+    return launches
+
+
+def routes_serving(device, card: str) -> None:
+    """Config 4's volume on the fused z-row path, on the module forward
+    through the flat walk (``use_fast_path=False``: SDPA, cuBLAS and cuDNN,
+    no hand kernel) and on the fused path with the ViT's GELU on tanh."""
+    from medseg_torch.engine.evaluate import Validator
+    from medseg_torch.models.unetr import init_weights, unetr_b16
+    from medseg_torch.ops.sliding_window import SlidingWindowSpec
+
+    g = torch.Generator().manual_seed(0)
+    model = init_weights(unetr_b16(1, N_CLASSES, CROP, dtype=torch.bfloat16), g).to(device).eval()
+    spec = SlidingWindowSpec(roi=(CROP,) * 3, overlap=0.5, sw_batch=4, mode="gaussian")
+    volume = np.random.default_rng(0).standard_normal(CONFIG4_VOLUME + (1,), dtype=np.float32)
+    fused = Validator(model, N_CLASSES, "ct", spec, device=device)
+    eager = Validator(model, N_CLASSES, "ct", spec, use_fast_path=False, device=device)
+    if not fused.use_fast_path:
+        raise RuntimeError("routes: config 4's window is off the fused path")
+    outs, runs = {}, {}
+    for name, validator, gelu in (("fused", fused, contextlib.nullcontext()),
+                                  ("eager", eager, contextlib.nullcontext()),
+                                  ("fused-tanh", fused, tanh_gelu(model))):
+        with gelu:
+            out, seconds, launches = timed_volume(validator, volume)
+            check_volume(out, CONFIG4_VOLUME + (N_CLASSES,), f"routes, config 4 {name}")
+            outs[name] = out
+            t0 = time.perf_counter()
+            validator.infer_volume(volume)
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+            runs[name] = {"host_ms": [1e3 * seconds, 1e3 * again], "launches": launches, "per": 1,
+                          **device_busy(lambda: validator.infer_volume(volume))}
+        log(route_line(f"config 4 {name}", runs[name], card, "volume"))
+    launched = [k for k, v in runs["eager"]["launches"].items() if v]
+    if launched or not runs["fused"]["launches"]["outhead_row_of"]:
+        raise RuntimeError(f"routes: the eager walk launched {launched}, the fused one "
+                           f"{runs['fused']['launches']}")
+    for a, b in (("fused", "eager"), ("fused-tanh", "fused")):
+        err = rel_l2(outs[a], outs[b])
+        agree = (outs[a].argmax(-1) == outs[b].argmax(-1)).float().mean().item()
+        log(f"[routes] config 4 {a} vs {b}: volume logits rel L2 {err:.3e}, argmax agreement "
+            f"{agree:.5f}; host {np.median(runs[a]['host_ms']):.1f} vs "
+            f"{np.median(runs[b]['host_ms']):.1f} ms/volume, busy {runs[a]['busy_ms']:.2f} vs "
+            f"{runs[b]['busy_ms']:.2f} ms [{card}]")
+        if a == "fused" and not err <= FWD_REL_L2_BOUND:
+            raise RuntimeError(f"routes: fused vs eager volume rel L2 {err}")
+        if a == "fused-tanh" and not err > 0:
+            raise RuntimeError("routes: the tanh GELU left the volume's logits as they were")
 
 
 def pretrain_model(feature_size: int = 16):
@@ -1746,6 +2057,8 @@ def main() -> int:
     phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
     phase_loss_repeat(device, card)
     paths["train"] = phase_train(device, card)
+    torch.cuda.empty_cache()
+    paths["config-2"] = phase_routes(device, card)
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.flat_cases, "flat-kernel",
                   tc_required=("conv3x3x3_flat",))

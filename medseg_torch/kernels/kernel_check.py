@@ -431,22 +431,14 @@ def time_ms(fn: Callable, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn: Callable, pattern: str, reps: int = 10,
-              flush: Callable | None = None) -> float:
-    """Mean device time per call of the kernels whose names match
-    ``pattern``: the kernels' durations in ``torch.profiler``'s trace over
-    ``reps`` calls after one warm call, so no host time enters it;
-    ``flush()`` (not counted) runs before each call where given (read a
-    buffer larger than the L2: a flush by writes leaves dirty lines that the
-    timed kernel then pays to write back)."""
-    fn()
+def trace_kernels(run: Callable, pattern: str = "") -> list[dict]:
+    """The device kernels of one ``run()`` whose names match ``pattern``
+    (all by default), as ``torch.profiler``'s trace events (``name``, ``ts``
+    and ``dur`` in us)."""
     torch.cuda.synchronize()
     for _ in range(3):  # the profiler now and then returns a trace without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush()
-                fn()
+            run()
             torch.cuda.synchronize()
         fd, path = tempfile.mkstemp(suffix=".json")
         os.close(fd)
@@ -456,11 +448,29 @@ def device_ms(fn: Callable, pattern: str, reps: int = 10,
                 events = json.load(f)["traceEvents"]
         finally:
             os.remove(path)
-        durs = [e["dur"] for e in events
-                if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
-        if durs:
-            return sum(durs) / 1e3 / reps
+        events = [e for e in events if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
+        if events:
+            return events
     raise RuntimeError(f"the profiler recorded no device kernel matching {pattern!r}")
+
+
+def device_ms(fn: Callable, pattern: str, reps: int = 10,
+              flush: Callable | None = None) -> float:
+    """Mean device time per call of the kernels whose names match
+    ``pattern``: the kernels' durations in ``torch.profiler``'s trace over
+    ``reps`` calls after one warm call, so no host time enters it;
+    ``flush()`` (not counted) runs before each call where given (read a
+    buffer larger than the L2: a flush by writes leaves dirty lines that the
+    timed kernel then pays to write back)."""
+    fn()
+
+    def run():
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+
+    return sum(e["dur"] for e in trace_kernels(run, pattern)) / 1e3 / reps
 
 
 def run_case(case: Case, dtype: torch.dtype, *, timed: bool = False) -> dict:
