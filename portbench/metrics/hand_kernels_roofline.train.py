@@ -1,0 +1,8 @@
+"""The bound time of the work the hand kernels carry in a step (counted from
+the configuration) over their device time in the trace, in percent."""
+
+from portbench import readings
+
+
+def read(ctx):
+    return readings.roofline(ctx, "train")
