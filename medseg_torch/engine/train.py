@@ -25,6 +25,7 @@ from medseg_torch.ops.augment import augment_batch
 from medseg_torch.ops.losses import dice_ce_loss
 from medseg_torch.ops.sliding_window import SlidingWindowSpec
 from medseg_torch.parallel.mesh import all_reduce_gradients
+from medseg_torch.utils.profiling import span
 
 TASKS = ("ct", "mri")
 
@@ -79,19 +80,24 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the train state holds another model than this step was made for")
         device = next(model.parameters()).device
-        image = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
-        label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
-        if device_augment:
+        with span("medseg.train.upload"):
+            image = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
+            label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
+            if task == "ct":
+                label = label.to(torch.int32)
+        if device_augment:  # flips and rotations: the labels' dtype does not matter
             image, label = augment_batch(state.generator, image, label, rank=rank, world=world)
-        if task == "ct":
-            label = label.to(torch.int32)
-        loss = loss_fn(model, image, label)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("medseg.train.forward"):
+            loss = loss_fn(model, image, label)
+        with span("medseg.train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if mesh is not None:
             fill_missing_gradients(model)
             all_reduce_gradients(mesh, model)
-        return apply_gradients(state), loss.detach()
+        with span("medseg.train.optimizer"):
+            state = apply_gradients(state)
+        return state, loss.detach()
 
     return step
 

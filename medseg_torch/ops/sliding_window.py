@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from medseg_torch.utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class SlidingWindowSpec:
@@ -210,18 +212,19 @@ def sliding_window_inference(
 def pad_volume(volume, spec: SlidingWindowSpec, device):
     """(D, H, W, C) or (1, D, H, W, C) -> ((C, Dp, Hp, Wp) fp32 on
     ``device``, spatial, pads, padded, squeeze)."""
-    vol = torch.as_tensor(volume)
-    squeeze = vol.ndim == 5
-    if squeeze:
-        if vol.shape[0] != 1:
-            raise ValueError("sliding_window_inference expects a single volume")
-        vol = vol[0]
-    spatial = tuple(int(s) for s in vol.shape[:3])
-    pads = _pad_amounts(spatial, tuple(spec.roi), spec.bucket_multiple)
-    padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
-    vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
-    if any(lo or hi for lo, hi in pads):
-        vol = F.pad(vol, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
+    with span("medseg.serve.upload"):
+        vol = torch.as_tensor(volume)
+        squeeze = vol.ndim == 5
+        if squeeze:
+            if vol.shape[0] != 1:
+                raise ValueError("sliding_window_inference expects a single volume")
+            vol = vol[0]
+        spatial = tuple(int(s) for s in vol.shape[:3])
+        pads = _pad_amounts(spatial, tuple(spec.roi), spec.bucket_multiple)
+        padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial, pads))
+        vol = vol.to(device=device, dtype=torch.float32).permute(3, 0, 1, 2)  # (C, D, H, W)
+        if any(lo or hi for lo, hi in pads):
+            vol = F.pad(vol, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
     return vol, spatial, pads, padded, squeeze
 
 
@@ -236,18 +239,19 @@ def _walk_batches(vol, starts, valid, imp, inv_count, apply_fn, roi, padded,
         return t[..., s[0] : s[0] + rd, s[1] : s[1] + rh, s[2] : s[2] + rw]
 
     acc = None
-    for starts_b, valid_b in zip(starts, valid):
-        windows = torch.stack([window(vol, s) for s in starts_b])
-        inv_w = torch.stack([window(inv_count, s) for s in starts_b])
-        wgt = (imp[None] * inv_w * valid_b[:, None, None, None])[:, None]
-        if apply_takes_weight:
-            out = apply_fn(windows, wgt)
-        else:
-            out = apply_fn(windows).float() * wgt
-        if acc is None:
-            acc = torch.zeros((out.shape[1],) + padded, dtype=acc_dtype, device=vol.device)
-        for s, o in zip(starts_b, out):
-            window(acc, s).add_(o.to(acc.dtype))
+    with span("medseg.serve.walk"):
+        for starts_b, valid_b in zip(starts, valid):
+            windows = torch.stack([window(vol, s) for s in starts_b])
+            inv_w = torch.stack([window(inv_count, s) for s in starts_b])
+            wgt = (imp[None] * inv_w * valid_b[:, None, None, None])[:, None]
+            with span("medseg.serve.forward"):
+                out = apply_fn(windows, wgt) if apply_takes_weight else apply_fn(windows)
+            if not apply_takes_weight:
+                out = out.float() * wgt
+            if acc is None:
+                acc = torch.zeros((out.shape[1],) + padded, dtype=acc_dtype, device=vol.device)
+            for s, o in zip(starts_b, out):
+                window(acc, s).add_(o.to(acc.dtype))
     return acc
 
 

@@ -41,6 +41,7 @@ from medseg_torch.ops.sliding_window import (
     per_dim_window_starts,
     zrow_supported,
 )
+from medseg_torch.utils.profiling import span
 
 __all__ = ["sliding_window_inference_zrow", "sliding_window_inference_zrow_sharded",
            "zrow_supported"]
@@ -123,17 +124,20 @@ def _walk_d_starts(vol, d_starts, apply_fn, n_classes: int, spec: SlidingWindowS
         padded, roi, spec.overlap, spec.mode, spec.sigma_scale, vol.device
     )
     rd, rh, rw = roi
-    acc = torch.zeros((class_pad(n_classes),) + padded, dtype=ACC_DTYPES[acc_dtype],
-                      device=vol.device)
-    for d0 in d_starts:
-        for rows in np.asarray(h_starts).reshape(-1, h_group):
-            starts = torch.tensor([(d0, h0, w0) for w0 in w_starts for h0 in rows],
-                                  dtype=torch.int32)
-            windows = torch.stack([vol[:, d : d + rd, h : h + rh, w : w + rw]
+    with span("medseg.serve.walk"):
+        acc = torch.zeros((class_pad(n_classes),) + padded, dtype=ACC_DTYPES[acc_dtype],
+                          device=vol.device)
+        for d0 in d_starts:
+            for rows in np.asarray(h_starts).reshape(-1, h_group):
+                starts = torch.tensor([(d0, h0, w0) for w0 in w_starts for h0 in rows],
+                                      dtype=torch.int32)
+                windows = torch.stack([vol[:, d : d + rd, h : h + rh, w : w + rw]
+                                       for d, h, w in starts.tolist()])
+                wgt = torch.stack([inv_count[d : d + rd, h : h + rh, w : w + rw]
                                    for d, h, w in starts.tolist()])
-            wgt = torch.stack([inv_count[d : d + rd, h : h + rh, w : w + rw]
-                               for d, h, w in starts.tolist()])
-            apply_fn(windows, (imp[None] * wgt)[:, None], starts, acc)
+                wgt = (imp[None] * wgt)[:, None]
+                with span("medseg.serve.forward"):
+                    apply_fn(windows, wgt, starts, acc)
     return acc
 
 

@@ -1,7 +1,26 @@
 """Step timing, throughput counters and profiler capture (counterpart of
-``medseg/utils/profiling.py``): ``StepTimer``, ``Throughput``, and
+``medseg/utils/profiling.py``): ``StepTimer``, ``Throughput``,
 ``trace(log_dir)``, a ``torch.profiler`` capture of the host and, where a
-card is present, the device."""
+card is present, the device, and ``span(name)``, the named host ranges that
+such a capture holds inside the program's requests.
+
+The spans, recorded only while a profiler runs (``trace`` or any other
+``torch.profiler.profile``), each a ``user_annotation`` on the profiler's
+clock inside the caller's own ranges:
+
+- ``medseg.serve.upload``: a volume to the device, permuted and padded
+  (``ops.sliding_window.pad_volume``), once a volume;
+- ``medseg.serve.walk``: the window walk, accumulator to last add
+  (``ops.sliding_window._walk_batches``, ``ops.swi_zrow._walk_d_starts``),
+  once a volume;
+- ``medseg.serve.forward``: one model batch's forward inside the walk;
+- ``medseg.train.upload``: a batch to the device, CT labels cast to int32;
+- ``medseg.train.forward``: the forward and the loss;
+- ``medseg.train.backward``: ``zero_grad`` and ``loss.backward()``;
+- ``medseg.train.optimizer``: ``apply_gradients`` (AdamW's step);
+
+the last four once a ``make_train_step`` step.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +29,9 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class StepTimer:
@@ -75,7 +97,8 @@ def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block (host activity, and
     the CUDA kernels where a card is present) into ``log_dir`` as a Chrome
     trace (``<host>_<pid>.<time>.pt.trace.json``), which TensorBoard's
-    profiler plugin and Perfetto open. Yields the profiler."""
+    profiler plugin and Perfetto open; the trace holds the ``span`` ranges
+    of the module docstring. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -83,3 +106,11 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs; otherwise one shared null context, which costs a flag check."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
