@@ -46,12 +46,15 @@ and on BraTS. Phases, each raising on failure:
 5. ``Validator.infer_volume`` on small volumes against the plain fp32
    walk through both routes (z-row with K4, flat with K3), then on the
    config-4 volume with an fp32 and a bf16 accumulator (one warm run, one
-   timed run each, whose kernel launches are counted: 50 K4, 50 K2 and 50
-   K5 launches, all on the tensor cores, and K1 only on the tensor cores,
-   its narrow-input kernel included);
+   timed run each; ``timed_volume``: the launches counted on the volume
+   run eagerly are 50 K4, 50 K2 and 50 K5 launches, all on the tensor
+   cores, and K1 only on the tensor cores, its narrow-input kernel
+   included, and the graphed walk's device kernels, from a profiler trace,
+   are the eager walk's, name by name);
 6. config 8: a small four-channel volume against the plain fp32 forward,
    then one warm and one timed 240x240x155 volume (K1, K2, K5, K3 launched;
-   K1, K2, K3 and K5 only on the tensor cores, K1's narrow kernel launched);
+   K1, K2, K3 and K5 only on the tensor cores, K1's narrow kernel launched;
+   the graphed walk's device kernels the eager walk's);
 7. the CLI: ``medseg_torch.cli.infer`` with ``--bf16`` and the device
    preprocessing on a synthetic two-volume CT Decathlon directory; masks
    checked, end-to-end vol/s printed (K1, K2, K4 and K5 only on the
@@ -161,13 +164,16 @@ The line before the last is the JSON kernel table (K1-K6 and K9 with the
 launches of their tensor-core route beside all their launches by path,
 path ``config-2`` the default config-2 run's 6 timed steps, the
 route their timed case took, and each kernel's fp32 case times beside the
-bf16 ones; the narrow-input kernels of K1 and K6 as rows of their own); the
-last line is ``{"ok": true, "device": {...}}``. Imports
+bf16 ones; the narrow-input kernels of K1 and K6 as rows of their own; on
+the paths whose ``Validator`` replays CUDA graphs unchecked by
+``timed_volume`` (the CLIs, validations and the data-parallel walks) the
+launches the host issued, which a replay adds nothing to); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import importlib.util
@@ -255,6 +261,7 @@ ROUTE_RUNS = {  # run -> (the parts on the library, the kernels it must not laun
     "all-library": (("convs", "wgrad", "loss"), ROUTE_KERNELS),
 }
 CONFIG4_VOLUME = (512, 512, 160)
+TRACE_PAIRS = 3  # pairs of profiler traces of a graphed and an eager volume (timed_volume)
 ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
@@ -727,10 +734,80 @@ def warm_then_timed(validator, volume, before_timed=lambda: None) -> tuple[torch
     return out, time.perf_counter() - t0
 
 
+class NoGraphs:
+    """A ``GraphedForward`` backend that captures nothing: every batch runs
+    the fused forward eagerly, each kernel launched from the host."""
+
+    @staticmethod
+    def captures(x: torch.Tensor) -> bool:
+        return False
+
+
+@contextlib.contextmanager
+def eager_forward(validator):
+    """``validator``'s fused forward run eagerly within the block (a runner
+    that captures nothing in place of its ``GraphedForward``)."""
+    from medseg_torch.kernels.unetr_of import GraphedForward
+
+    graphed = validator.graphed
+    eager = GraphedForward(graphed.model, graphed.weights, graphs=NoGraphs)
+    validator._apply_fn = validator._apply_acc = eager
+    try:
+        yield
+    finally:
+        validator._apply_fn = validator._apply_acc = graphed
+
+
+def device_kernels(run) -> collections.Counter:
+    """The device kernels of one ``run()`` by name, from a profiler trace."""
+    from medseg_torch.kernels.kernel_check import trace_kernels
+
+    return collections.Counter(e["name"] for e in trace_kernels(run))
+
+
 def timed_volume(validator, volume) -> tuple[torch.Tensor, float, dict]:
-    """One warm run, then one timed run whose kernel launches are counted."""
+    """One warm run, then one timed run. The launches returned are counted
+    where they launch: on the module forward (no ``graphed``) over the
+    timed run, on the fused path over the volume run eagerly
+    (``eager_forward``), since a CUDA graph's replay launches nothing from
+    the host. The fused path's graphed volume must then give the eager
+    volume's logits bit for bit and run its device kernels, name by name
+    and count by count, both read from profiler traces. The profiler now
+    and then drops the records of a few hundred kernels from a trace of a
+    CT volume's ~28,000, on either path, so a pair of traces that differs
+    is logged and traced again, up to ``TRACE_PAIRS`` pairs; a graph that
+    ran other kernels differs in every pair."""
     out, seconds = warm_then_timed(validator, volume, reset_launches)
-    return out, seconds, all_launches()
+    if validator.graphed is None:
+        return out, seconds, all_launches()
+    with eager_forward(validator):
+        reset_launches()
+        eager_out = validator.infer_volume(volume)
+        torch.cuda.synchronize()
+        launches = all_launches()
+    if not torch.equal(out, eager_out):
+        raise RuntimeError(f"the graphed volume's logits are not the eager volume's: largest "
+                           f"|diff| {(out - eager_out).abs().max().item():.3e}")
+    del eager_out
+    for pair in range(1, TRACE_PAIRS + 1):
+        graphed = device_kernels(lambda: validator.infer_volume(volume))
+        with eager_forward(validator):
+            eager = device_kernels(lambda: validator.infer_volume(volume))
+        if graphed == eager:
+            break
+        diff = {name: (graphed[name], eager[name]) for name in graphed | eager
+                if graphed[name] != eager[name]}
+        log(f"[graphs] {volume.shape} volume, trace pair {pair}: {sum(graphed.values())} device "
+            f"kernels graphed, {sum(eager.values())} eager; {len(diff)} names differ, (graphed, "
+            f"eager) by name {sorted(diff.values())}")
+    else:
+        raise RuntimeError(f"the graphed volume's device kernels are not the eager volume's in "
+                           f"{TRACE_PAIRS} pairs of traces: (graphed, eager) {diff}")
+    log(f"[graphs] {volume.shape} volume: {sum(graphed.values())} device kernels in the graphed "
+        f"walk, the eager walk's by name and count (trace pair {pair}), logits bitwise equal "
+        f"({validator.graphed.captures} captures, "
+        f"{validator.graphed.replays} replays so far)")
+    return out, seconds, launches
 
 
 def check_volume(out: torch.Tensor, shape, label: str) -> None:
@@ -1238,12 +1315,14 @@ def routes_serving(device, card: str) -> None:
     volume = np.random.default_rng(0).standard_normal(CONFIG4_VOLUME + (1,), dtype=np.float32)
     fused = Validator(model, N_CLASSES, "ct", spec, device=device)
     eager = Validator(model, N_CLASSES, "ct", spec, use_fast_path=False, device=device)
+    # a runner of its own: a captured graph keeps the GELU it was captured with
+    fused_tanh = Validator(model, N_CLASSES, "ct", spec, device=device)
     if not fused.use_fast_path:
         raise RuntimeError("routes: config 4's window is off the fused path")
     outs, runs = {}, {}
     for name, validator, gelu in (("fused", fused, contextlib.nullcontext()),
                                   ("eager", eager, contextlib.nullcontext()),
-                                  ("fused-tanh", fused, tanh_gelu(model))):
+                                  ("fused-tanh", fused_tanh, tanh_gelu(model))):
         with gelu:
             out, seconds, launches = timed_volume(validator, volume)
             check_volume(out, CONFIG4_VOLUME + (N_CLASSES,), f"routes, config 4 {name}")

@@ -16,7 +16,11 @@ kernels on a CUDA device and runs their plain versions on the CPU. Without
 the fast path, or where the predicate is false (a width the kernels lack, a
 window below 48^3 on the card), the module forward runs through the flat
 walk with an fp32 accumulator (the JAX "ndhwc" route, which does not read
-``acc_dtype``).
+``acc_dtype``). The fused forward is a ``kernels.unetr_of.GraphedForward``
+(``Validator.graphed``): on a CUDA device a window batch shape's first batch
+runs eagerly, its second is captured as a CUDA graph and every later one
+replays it, bit for bit the eager forward; CPU tensors always run
+``fast_apply_v3`` eagerly.
 
 With a data-parallel ``mesh`` (``medseg_torch.parallel``), as the JAX
 Validator with its mesh, every rank runs the same validation with the window
@@ -35,7 +39,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from medseg_torch.kernels.unetr_of import fast_apply_v3, fast_path_supported, fused_weights
+from medseg_torch.kernels.unetr_of import GraphedForward, fast_path_supported, fused_weights
 from medseg_torch.ops.metrics import ConfusionAccumulator, DiceAccumulator, HausdorffAccumulator
 from medseg_torch.ops.post import argmax_onehot, sigmoid_threshold, to_onehot
 from medseg_torch.ops.sliding_window import (
@@ -81,6 +85,9 @@ class Validator:
       device: where the model, the windows and the accumulator live.
       mesh: a ``medseg_torch.parallel.Mesh`` to shard the window grid over
         (every rank calls the Validator on the same volumes), or None.
+
+    ``graphed``: the fast path's ``GraphedForward`` (its ``captures`` and
+    ``replays``), None off the fast path.
     """
 
     def __init__(self, model, n_classes: int, task: str, spec: SlidingWindowSpec, *,
@@ -95,16 +102,12 @@ class Validator:
         window = (spec.sw_batch, self.model.in_channels, *spec.roi)
         self.use_fast_path = use_fast_path and fast_path_supported(self.model, window, self.device)
         self.acc_dtype = acc_dtype
+        self.graphed = None
         if self.use_fast_path:
-            weights = fused_weights(self.model)  # the kernels' weights, cast once
-
-            def apply_fn(windows, wgt):
-                return fast_apply_v3(self.model, windows, weights, out_scale=wgt)
-
-            def apply_acc(windows, wgt, starts, acc):
-                fast_apply_v3(self.model, windows, weights, out_scale=wgt, starts=starts, acc=acc)
-
-            self._apply_acc = apply_acc
+            # both walks' forward: (windows, wgt) for K3, (..., starts, acc) for
+            # K4; the kernels' weights cast once
+            self.graphed = GraphedForward(self.model, fused_weights(self.model))
+            apply_fn = self._apply_acc = self.graphed
         else:
 
             def apply_fn(windows):

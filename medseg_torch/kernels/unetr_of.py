@@ -19,7 +19,13 @@ Each kernel's epilogue sums its output per (b, channel); ``_affine`` turns
 the sums into the next norm's affine, applied in the next kernel's
 prologue. Conv biases cancel under instance norm and are never read. The
 chain's weights are cast to the compute dtype once per model
-(``fused_weights``) and passed to every forward.
+(``fused_weights``) and passed to every forward. ``fast_apply_v3`` is
+``fused_body`` (everything up to the out head's inputs) followed by one of
+two exits, ``outhead_exit`` (K3) or ``outhead_row_exit`` (K4).
+
+``GraphedForward`` serves the same forward on the card as CUDA graphs, one
+per window batch shape and exit, replayed with one launch a batch (the
+``Validator``'s forward on a CUDA device).
 
 ``fast_path_supported`` is the serving predicate (the counterpart of the JAX
 ``fast_path_supported_v2``): the chain is correct for the model, and on a
@@ -32,6 +38,9 @@ kernel lacks a width, so that no width ever raises.
 """
 
 from __future__ import annotations
+
+import collections
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +60,7 @@ from medseg_torch.kernels.conv_of import (
 )
 from medseg_torch.models.blocks import leaky_relu
 from medseg_torch.models.unetr import UNETR
+from medseg_torch.utils.profiling import span
 
 MIN_ROI = 48  # smallest window edge served by the chain on the card (the JAX predicate's)
 
@@ -176,7 +186,7 @@ def fast_apply_v3(
     starts=None,
     acc: torch.Tensor | None = None,
 ) -> torch.Tensor | None:
-    """Fused serving forward.
+    """Fused serving forward: ``fused_body``, then one of its exits.
 
     Args:
       x: (B, C_in, D, H, W) window batch, D/H/W = ``model.img_size``.
@@ -186,14 +196,15 @@ def fast_apply_v3(
       starts, acc: the accumulating exit. ``acc`` (K_pad, Dp, Hp, Wp) fp32 or
         bf16 is the volume accumulator and ``starts`` (B, 3) the windows'
         origins in it (host ints); the weighted logits are added into
-        ``acc`` in place (K4, ``conv_of.outhead_row_of``) and nothing is
+        ``acc`` in place (K4, ``outhead_row_exit``) and nothing is
         returned. Needs ``out_scale``.
 
     Returns:
       (B, K_pad, D, H, W) logits in the compute dtype ``model.dtype`` (fp32
       when None; the low-resolution stages run in it too), K_pad
       = ``class_pad(out_channels)``; pad classes carry bias (times the
-      weight) and are cropped by the caller. None with ``acc``.
+      weight) and are cropped by the caller (K3, ``outhead_exit``). None
+      with ``acc``.
     """
     n_classes = model.out_channels
     k_pad = class_pad(n_classes)
@@ -211,8 +222,25 @@ def fast_apply_v3(
             overlap_add_plain(out.float(), starts, acc)
             return None
         return out.to(dtype)
+    parts = fused_body(model, x, weights)
+    if acc is not None:
+        outhead_row_exit(weights, parts, out_scale, starts, acc)
+        return None
+    return outhead_exit(weights, parts, out_scale)
 
+
+@torch.no_grad()
+def fused_body(model: UNETR, x: torch.Tensor, weights: dict[str, torch.Tensor]):
+    """The chain from the window batch to the out head's inputs: the ViT and
+    the low-resolution stages, decoder3, encoder1's K1 pair, decoder2's
+    transpose conv, K2 and K1, and the norms' affines. Returns ``(z2, res,
+    za2, zb2, za3, zb3)``: decoder2's conv2 output and conv3 residual (B,
+    FS, D, H, W) in the compute dtype, and the (B, FS) fp32 affines of their
+    norms. Holds no host sync: the whole of it can be captured in a CUDA
+    graph (``GraphedForward``). Assumes the chain is correct for the model
+    and has its kernels (``fast_path_supported``)."""
     fs = model.feature_size
+    dtype = model.dtype or torch.float32
     b, c_in, d, h, w = x.shape
     n_valid = d * h * w
 
@@ -257,8 +285,136 @@ def fast_apply_v3(
     z2, zs2, zss2 = conv3x3x3_of(z1, cw("decoder2.conv_block.conv2"), za1, zb1)
     za2, zb2 = _affine(zs2, zss2, d2.norm2, n_valid)
     za3, zb3 = _affine(rs, rss, d2.norm3, n_valid)
-    head, bias = weights["out.weight"], weights["out.bias"]
-    if acc is not None:
-        outhead_row_of(z2, res, za2, zb2, za3, zb3, head, bias, out_scale, starts, acc)
-        return None
-    return outhead_of(z2, res, za2, zb2, za3, zb3, head, bias, out_scale)
+    return z2, res, za2, zb2, za3, zb3
+
+
+def outhead_exit(weights, parts, out_scale) -> torch.Tensor:
+    """The flat walk's exit: K3 over ``fused_body``'s ``parts``, the out
+    head's combine, 1x1 conv and bias times ``out_scale`` (or None): (B,
+    K_pad, D, H, W) logits in the compute dtype."""
+    return outhead_of(*parts, weights["out.weight"], weights["out.bias"], out_scale)
+
+
+def outhead_row_exit(weights, parts, out_scale, starts, acc) -> None:
+    """The z-row walk's exit: K4 over ``fused_body``'s ``parts``, the
+    weighted logits added into ``acc`` at ``starts`` (host ints)."""
+    outhead_row_of(*parts, weights["out.weight"], weights["out.bias"], out_scale, starts, acc)
+
+
+MAX_GRAPHS = 4  # graphs a GraphedForward keeps; the least recently used goes first
+
+
+class CudaGraphs:
+    """How ``GraphedForward`` captures: ``torch.cuda.CUDAGraph``, for CUDA
+    tensors only."""
+
+    @staticmethod
+    def captures(x: torch.Tensor) -> bool:
+        return x.is_cuda
+
+    @staticmethod
+    def new_graph():
+        return torch.cuda.CUDAGraph()
+
+    @staticmethod
+    def capture(graph, fn, pool):
+        """Captures ``fn()`` into ``graph`` (memory from ``pool``, a new
+        pool where None) and returns its outputs, the graph's static ones."""
+        with torch.cuda.graph(graph, pool=pool):
+            return fn()
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: object
+    x: torch.Tensor  # the static window batch
+    scale: torch.Tensor | None  # the static blend weight (the K3 exit's)
+    outs: object  # the static logits (K3) or body outputs (K4)
+
+
+class GraphedForward:
+    """``fast_apply_v3`` replayed as a CUDA graph per window batch shape and
+    exit: one graph launch where the host issued the chain's ~550 kernels.
+
+    The first batch of a shape runs eagerly (``fast_apply_v3``; it warms
+    cuDNN's plans, the kernels' launch plans and the narrow weights'
+    packing); the second is captured and every later one replays: the batch
+    (and K3's blend weight) is copied into the graph's static buffers and
+    ``replay()`` runs the same kernels on the same stream, so the results
+    are the eager ones bit for bit. The flat exit (K3) is captured with the
+    body; its static logits are overwritten by the next replay, so the
+    caller uses them first (the flat walk adds them into its accumulator
+    before the next batch). The accumulating exit (K4) reads the batch's
+    window starts on the host, so only the body is captured and K4 is
+    launched after the replay, eagerly, on the same stream.
+
+    The graphs share one memory pool, and at most ``MAX_GRAPHS`` are kept
+    (least recently used out). Shapes the fused chain does not serve
+    (``fast_path_supported``) and tensors ``graphs`` does not capture (the
+    CPU's) always run eagerly. The ``conv_of`` wrappers' launch counters
+    count what the host issues: the eager batches' launches and the
+    capture's (into the graph); a replay issues no kernel from the host and
+    adds nothing to them (the kernels a replay runs are read from a profiler
+    trace, ``kernel_check.trace_kernels``). ``captures`` and ``replays``
+    count the graphs' own. ``graphs``: the capturing backend,
+    ``CudaGraphs``. The spans, ``medseg.serve.replay`` and
+    ``medseg.serve.capture``, bear the serving walk's names: the
+    ``Validator`` is the runner's one caller.
+    """
+
+    def __init__(self, model: UNETR, weights: dict[str, torch.Tensor], *,
+                 graphs=CudaGraphs) -> None:
+        self.model, self.weights, self.graphs = model, weights, graphs
+        self._seen: set = set()
+        self._captured: collections.OrderedDict = collections.OrderedDict()
+        self._pool = None
+        self.captures = self.replays = 0
+
+    def __call__(self, x: torch.Tensor, out_scale: torch.Tensor, starts=None,
+                 acc: torch.Tensor | None = None) -> torch.Tensor | None:
+        """``fast_apply_v3(model, x, weights, out_scale=out_scale,
+        starts=starts, acc=acc)``; the K3 logits returned after a replay are
+        the graph's static ones."""
+        rows = acc is not None
+        key = (rows, tuple(x.shape), x.dtype, x.device)
+        entry = self._captured.get(key)
+        if entry is None:
+            if key not in self._seen:
+                if self.graphs.captures(x) and fast_path_supported(self.model, x.shape, x.device):
+                    self._seen.add(key)
+                return fast_apply_v3(self.model, x, self.weights, out_scale=out_scale,
+                                     starts=starts, acc=acc)
+            entry = self._capture(key, x, out_scale)
+        else:
+            self._captured.move_to_end(key)
+        entry.x.copy_(x)
+        if entry.scale is not None:
+            entry.scale.copy_(out_scale)
+        with span("medseg.serve.replay"):
+            entry.graph.replay()
+        self.replays += 1
+        if rows:
+            outhead_row_exit(self.weights, entry.outs, out_scale, starts, acc)
+            return None
+        return entry.outs
+
+    def _capture(self, key, x: torch.Tensor, out_scale: torch.Tensor) -> _Captured:
+        rows = key[0]
+        static_x = x.clone(memory_format=torch.contiguous_format)
+        scale = None if rows else out_scale.clone(memory_format=torch.contiguous_format)
+
+        def chain():
+            parts = fused_body(self.model, static_x, self.weights)
+            return parts if rows else outhead_exit(self.weights, parts, scale)
+
+        graph = self.graphs.new_graph()
+        with span("medseg.serve.capture"):
+            outs = self.graphs.capture(graph, chain, self._pool)
+        if self._pool is None:
+            self._pool = graph.pool()
+        self.captures += 1
+        if len(self._captured) >= MAX_GRAPHS:
+            self._captured.popitem(last=False)
+        entry = _Captured(graph, static_x, scale, outs)
+        self._captured[key] = entry
+        return entry

@@ -34,9 +34,10 @@ reports its final metrics, its checkpoint saves and its steps' seconds, and
 the run fails unless every rank's metrics are the same and rank 0 alone
 saved.
 
-Each rank's report carries its kernel launches (``launches``: those of the
-data-parallel path, not of rank 0's single-process references) and the
-collectives its mesh issued.
+Each rank's report carries its kernel launches (``launches``: those the
+host issued on the data-parallel path, not on rank 0's single-process
+references; on a CUDA device the sharded walk's replayed CUDA graphs add
+none) and the collectives its mesh issued.
 """
 
 from __future__ import annotations

@@ -13,7 +13,14 @@ after warm runs:
    busy time (the union of the kernel intervals) and the idle share of the
    traced span;
 2. ``Validator.infer_volume``: ``VOLUMES`` unprofiled runs on the host clock,
-   then one profiled run with the same breakdown.
+   then one profiled run with the same breakdown and the mean host ms of
+   the program's forward and replay spans (``HOST_SPANS``) and of the
+   CUDA graph launches;
+3. the host's ms to issue each of the ``Validator``'s forward calls over
+   one volume, and each CUDA graph replay inside them, unprofiled (the
+   host clock around the call; nothing synchronizes), then ``REPLAYS``
+   replays of each graph on an idle device (the launch alone), and the
+   seconds of each capture (in the warm volume).
 
 Prints one line per measurement and writes all of it as JSON to
 ``chiprun_out/profile_serving.json`` under the repository root. The
@@ -35,7 +42,10 @@ import torch
 
 FORWARDS = 5
 VOLUMES = 3
+REPLAYS = 5  # replays of a captured graph timed alone
 TOP_NAMES = 4  # kernel names kept per class, by device time
+HOST_SPANS = ("medseg.serve.forward", "medseg.serve.replay", "cudaGraphLaunch")
+HOST_CATS = ("user_annotation", "cuda_runtime")  # the host's rows, not their device copies
 OUT_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
 
 _CONV_MODE = {"0": "K1 conv3x3x3_of", "1": "K1 conv3x3x3_of", "2": "K5 conv3x3x3_of_cat2",
@@ -105,8 +115,13 @@ def profile(fn, n: int, trace_path: Path) -> dict:
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(trace_path))
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        trace = json.load(f)["traceEvents"]
     os.remove(trace_path)
+    events = [e for e in trace if e.get("cat") == "kernel"]
+    host: dict[str, list[float]] = {}
+    for e in trace:
+        if e.get("name") in HOST_SPANS and e.get("cat") in HOST_CATS and "dur" in e:
+            host.setdefault(e["name"], []).append(e["dur"] / 1e3)
     if not events:
         raise RuntimeError("the profiler recorded no device kernels")
     by_class: dict[str, dict] = {}
@@ -127,12 +142,66 @@ def profile(fn, n: int, trace_path: Path) -> dict:
         "span_ms": span / 1e3 / n,
         "idle_share_traced": 1.0 - busy / span,
         "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"])),
+        "host_spans": {name: {"per_run": len(ms) / n, "mean_ms": sum(ms) / len(ms)}
+                       for name, ms in host.items()},
     }
+
+
+def host_forward_ms(validator, volume) -> dict:
+    """The host's ms around each of ``validator``'s forward calls and each
+    CUDA graph replay over one unprofiled volume (nothing synchronizes in
+    between, so this is the time to issue the work, not to run it)."""
+    calls: dict[str, list[float]] = {"forward": [], "replay": [], "replay_idle": []}
+
+    def timed(key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            calls[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    real_apply, real_replay = validator._apply_acc, torch.cuda.CUDAGraph.replay
+    validator._apply_acc = timed("forward", real_apply)
+    torch.cuda.CUDAGraph.replay = timed("replay", real_replay)
+    try:
+        validator.infer_volume(volume)
+        torch.cuda.synchronize()
+    finally:
+        validator._apply_acc, torch.cuda.CUDAGraph.replay = real_apply, real_replay
+    for entry in validator.graphed._captured.values():  # the launch alone, on an idle device
+        for _ in range(REPLAYS):
+            torch.cuda.synchronize()
+            timed("replay_idle", entry.graph.replay)()
+    torch.cuda.synchronize()
+    return {key: {"calls": len(ms), "mean_ms": sum(ms) / len(ms) if ms else None,
+                  "max_ms": max(ms, default=None)} for key, ms in calls.items()}
+
+
+def capture_seconds(validator) -> list[float]:
+    """Wraps ``validator``'s graph capture in a clock (synchronized at both
+    ends); returns the list its captures' seconds go to."""
+    seconds: list[float] = []
+    real = validator.graphed._capture
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    validator.graphed._capture = timed
+    return seconds
 
 
 def _print_breakdown(label: str, p: dict) -> None:
     print(f"[{label}] {p['kernels_per_run']:.0f} kernels, busy {p['busy_ms']:.3f} ms in a traced "
           f"span of {p['span_ms']:.3f} ms (idle {100 * p['idle_share_traced']:.2f}%)", flush=True)
+    for name, h in p["host_spans"].items():
+        print(f"[{label}] host {name}: {h['per_run']:.0f} a run, mean {h['mean_ms']:.4f} ms",
+              flush=True)
     for cls, c in p["by_class"].items():
         print(f"[{label}]   {c['ms']:10.3f} ms  {c['launches']:8.1f} launches  {cls}", flush=True)
         for name, ms in c["top"]:
@@ -174,7 +243,10 @@ def main() -> None:
     spec = SlidingWindowSpec(roi=(96, 96, 96), overlap=0.5, sw_batch=4, mode="gaussian")
     validator = Validator(model, 14, "ct", spec, device=device)
     volume = np.random.default_rng(0).standard_normal((512, 512, 160, 1), dtype=np.float32)
+    captures = capture_seconds(validator)
     validator.infer_volume(volume)  # warm
+    result["volume"]["capture_s"] = captures
+    print(f"[volume] CUDA graph captures (s): {captures}", flush=True)
     seconds = []
     for _ in range(VOLUMES):
         torch.cuda.synchronize()
@@ -190,6 +262,9 @@ def main() -> None:
     _print_breakdown("volume", vol)
     print(f"[volume] busy / fastest unprofiled wall: {vol['busy_over_unprofiled_wall']:.4f}",
           flush=True)
+    host = host_forward_ms(validator, volume)
+    result["volume"]["host_unprofiled"] = host
+    print(f"[host] unprofiled, one volume: {host}", flush=True)
     with open(OUT_DIR / "profile_serving.json", "w") as f:
         json.dump(result, f, indent=1)
 

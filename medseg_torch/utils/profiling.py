@@ -14,6 +14,11 @@ clock inside the caller's own ranges:
   (``ops.sliding_window._walk_batches``, ``ops.swi_zrow._walk_d_starts``),
   once a volume;
 - ``medseg.serve.forward``: one model batch's forward inside the walk;
+- ``medseg.serve.replay``: inside a forward on the card, the replay of the
+  batch shape's CUDA graph (``kernels.unetr_of.GraphedForward``), once a
+  replayed batch;
+- ``medseg.serve.capture``: inside a forward on the card, the capture of
+  that graph, once a batch shape (a shape's second batch);
 - ``medseg.train.upload``: a batch to the device, CT labels cast to int32;
 - ``medseg.train.forward``: the forward and the loss;
 - ``medseg.train.backward``: ``zero_grad`` and ``loss.backward()``;

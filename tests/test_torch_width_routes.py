@@ -137,8 +137,8 @@ def test_validator_serves_a_width_without_kernels_through_the_module(monkeypatch
     monkeypatch.setattr(tevaluate, "fast_path_supported",
                         lambda model, shape, device: tuo.fast_path_supported(model, shape, "cuda"))
     calls = []
-    fused = tevaluate.fast_apply_v3
-    monkeypatch.setattr(tevaluate, "fast_apply_v3", lambda *a, **k: calls.append(1) or fused(*a, **k))
+    fused = tuo.fast_apply_v3  # the Validator's fused forward calls it (GraphedForward)
+    monkeypatch.setattr(tuo, "fast_apply_v3", lambda *a, **k: calls.append(1) or fused(*a, **k))
     g = torch.Generator().manual_seed(0)
     model = _model(8, out_channels=3, dtype=None, roi=48).eval()
     for p in model.parameters():
