@@ -55,14 +55,15 @@ def serve_control(cell, seed: int, device) -> dict:
     from portbench.params import make_weights
 
     judge.reference_precision()
-    config = cell.config
-    weights = make_weights(config["model"], seed, device)
+    config, arch = cell.config, cell.architecture
+    weights = make_weights(arch, config["model"], seed, device)
     pool = inputs.serve_pool(config, cell.traffic, seed, device)
     worst = 0.0
     for volume in pool:
-        answer = judge.label_map(judge.reference_logits(weights, config, volume, device, "fp8"),
-                                 config["task"]).cpu()
-        ref = judge.reference_logits(weights, config, volume, device)
+        answer = judge.label_map(
+            judge.reference_logits(arch, weights, config, volume, device, "fp8"),
+            config["task"]).cpu()
+        ref = judge.reference_logits(arch, weights, config, volume, device)
         worst = max(worst, judge.serve_gap(ref, answer, config["task"]))
         del ref
         torch.cuda.empty_cache()
@@ -77,11 +78,11 @@ def train_reference_reading(cell, seed: int, device, precision: str = "fp32",
     from portbench.params import make_weights
 
     judge.reference_precision()
-    config, traffic = cell.config, cell.traffic
+    config, traffic, arch = cell.config, cell.traffic, cell.architecture
     batches = inputs.train_pool(config, traffic, seed, device)[:traffic["checked_steps"]]
-    weights0 = make_weights(config["model"], seed, device)
-    ref = judge.reference_steps(weights0, config, batches, device)
-    got = judge.reference_steps(weights0, config, batches, device, precision, rows)
+    weights0 = make_weights(arch, config["model"], seed, device)
+    ref = judge.reference_steps(arch, weights0, config, batches, device)
+    got = judge.reference_steps(arch, weights0, config, batches, device, precision, rows)
     return judge.train_numbers(got, ref)
 
 

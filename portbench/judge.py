@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: what the timed path produced,
-against the plain reference (``portbench/reference``) on the same weights
-and inputs, each number beside the limit in ``limits/<workload>.json``.
+against the plain reference (``portbench/reference``, reached through the
+configuration's architecture file) on the same weights and inputs, each
+number beside the limit in ``limits/<workload>.json``.
 
 Serving: the reference's blended float32 logits of every served volume. CT
 answers are class labels; a voxel's gap is how far the reference's logit of
@@ -32,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from portbench.reference import swi, unetr
+from portbench.reference import swi
 from portbench.reference.adamw import AdamW
 from portbench.reference.loss import dice_ce
 
@@ -45,14 +46,15 @@ def reference_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def reference_logits(weights: dict, config: dict, volume: torch.Tensor, device,
+def reference_logits(arch, weights: dict, config: dict, volume: torch.Tensor, device,
                      precision: str = "fp32") -> torch.Tensor:
-    """The reference's (D, H, W, K) float32 logits of a host volume."""
+    """The reference's (D, H, W, K) float32 logits of a host volume, by the
+    forward of architecture ``arch``."""
     m = config["model"]
     serve = config["serve"]
     vol = torch.as_tensor(volume).to(device)
     with torch.no_grad():
-        return swi.infer(vol, lambda x: unetr.forward(weights, m, x, precision),
+        return swi.infer(vol, lambda x: arch.forward(weights, m, x, precision),
                          m["out_channels"], serve, serve["sw_batch"])
 
 
@@ -98,9 +100,10 @@ def serve_gap(ref: torch.Tensor, answer, task: str) -> float:
     return float(gap.max())
 
 
-def reference_steps(weights0: dict, config: dict, batches: list[dict], device,
+def reference_steps(arch, weights0: dict, config: dict, batches: list[dict], device,
                     precision: str = "fp32", rows: int | None = None) -> dict:
-    """The reference's training steps from ``weights0`` on ``batches``:
+    """The reference's training steps (the forward of architecture ``arch``)
+    from ``weights0`` on ``batches``:
     each step's loss, every weight's first-gradient norm and the norm of its
     change over the steps. ``rows`` keeps the first rows of each batch only
     (the half-batch fault)."""
@@ -112,7 +115,7 @@ def reference_steps(weights0: dict, config: dict, batches: list[dict], device,
     for i, batch in enumerate(batches):
         image = torch.as_tensor(batch["image"]).to(device)[:rows]
         label = torch.as_tensor(batch["label"]).to(device)[:rows]
-        loss = dice_ce(unetr.forward(w, m, image, precision), label, task)
+        loss = dice_ce(arch.forward(w, m, image, precision), label, task)
         grads = torch.autograd.grad(loss, [w[k] for k in names], allow_unused=True)
         g = {k: torch.zeros_like(w[k]) if gr is None else gr for k, gr in zip(names, grads)}
         if i == 0:

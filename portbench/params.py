@@ -1,18 +1,18 @@
 """The benchmark's own seeded weights for a configuration.
 
-All weights are drawn in one ``torch.randn`` call on the device from a
-generator seeded by the run's seed, then scaled per tensor: matrices and conv
-kernels N(0, 1/fan_in); the positional embedding N(0, 0.02^2); biases
-N(0, 0.02^2); norm scales 1 + N(0, 0.1^2) and norm shifts N(0, 0.1^2). The
-same seed gives the same tensors; the program loads them under their MONAI
-names and the reference reads them as they are.
+The tensors, their shapes and their order are the architecture's
+``parameter_table`` (``architectures/<name>.py``). All weights are drawn in
+one ``torch.randn`` call on the device from a generator seeded by the run's
+seed, then scaled per tensor: matrices and conv kernels N(0, 1/fan_in);
+the positional embedding N(0, 0.02^2); biases N(0, 0.02^2); norm scales
+1 + N(0, 0.1^2) and norm shifts N(0, 0.1^2). The same seed gives the same
+tensors; the program loads them under their names in the table (MONAI's
+module names for UNETR) and the reference reads them as they are.
 """
 
 from __future__ import annotations
 
 import torch
-
-from portbench.reference.unetr import parameter_table
 
 WEIGHT_STREAM = 1
 _SCALE = {"pos": 0.02, "bias": 0.02, "norm_weight": 0.1, "norm_bias": 0.1}
@@ -23,9 +23,10 @@ def stream_seed(seed: int, stream: int) -> int:
     return (int(seed) * 1_000_003 + stream) % (2**63)
 
 
-def make_weights(model: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """Name -> fp32 tensor on ``device``, every tensor a view of one buffer."""
-    table = parameter_table(model)
+def make_weights(arch, model: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """Name -> fp32 tensor on ``device``, every tensor a view of one buffer,
+    for the model group ``model`` of architecture ``arch``."""
+    table = arch.parameter_table(model)
     sizes = [1] * len(table)
     std, mean = [], []
     for i, (_, shape, kind, fan_in) in enumerate(table):

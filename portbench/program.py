@@ -1,5 +1,7 @@
 """The system under test, ``medseg_torch``, through its public entry points
-only: ``models.unetr.UNETR``, ``engine.evaluate.Validator``,
+only: the model module that the configuration's architecture file builds
+(``architectures/<name>.py``: ``models.unetr.UNETR`` for "unetr"), and,
+shared by every architecture, ``engine.evaluate.Validator``,
 ``ops.sliding_window.SlidingWindowSpec``, ``ops.post``, ``engine.train
 .make_train_step`` and ``engine.state`` (``TrainState``, ``adamw``). It is
 imported when a run starts, never when this module is imported."""
@@ -11,20 +13,11 @@ import torch
 COMPUTE = {"bfloat16": torch.bfloat16, "float32": None}
 
 
-def build_model(config: dict, weights: dict, device, *, remat: bool):
-    """The configuration's UNETR on ``device`` holding ``weights`` (strict)."""
-    from medseg_torch.models.unetr import UNETR
-
-    m = config["model"]
+def build_model(arch, config: dict, weights: dict, device, *, remat: bool):
+    """The configuration's model, as its architecture ``arch`` builds it, on
+    ``device`` holding ``weights`` (strict)."""
     with torch.device(device):
-        model = UNETR(
-            in_channels=m["in_channels"], out_channels=m["out_channels"],
-            img_size=(m["img_size"],) * 3, feature_size=m["feature_size"],
-            hidden_size=m["hidden_size"], mlp_dim=m["mlp_dim"], num_heads=m["num_heads"],
-            num_layers=m["num_layers"], patch_size=m["patch_size"], pos_embed=m["pos_embed"],
-            norm_name=m["norm_name"], res_block=m["res_block"], dropout_rate=m["dropout_rate"],
-            dtype=COMPUTE[config["precision"]["compute"]], remat=remat,
-        )
+        model = arch.build(config["model"], COMPUTE[config["precision"]["compute"]], remat)
     model.load_state_dict(weights)
     return model
 

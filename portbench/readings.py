@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from types import ModuleType
 
 from portbench import work
 from portbench.tracing import Trace
@@ -28,6 +29,7 @@ class Context:
     items: int  # windows per volume, or crops per step
     families: dict  # kernels/<family>.json, by name
     peak_bytes: int  # the unprofiled window's peak of allocated device memory
+    architecture: ModuleType | None = None  # architectures/<name>.py of the configuration
 
 
 def per_request(ctx: Context, value: float) -> float:
@@ -45,20 +47,21 @@ def mfu(ctx: Context, kind: str, passes: float):
     per item x items completed in the unprofiled window, over its seconds."""
     if ctx.kind != kind or ctx.completed == 0:
         return None
-    flops = passes * work.forward_flops(ctx.model) * ctx.items * ctx.completed
+    flops = passes * work.forward_flops(ctx.architecture, ctx.model) * ctx.items * ctx.completed
     return 100.0 * flops / ctx.window_s / work.PEAK_FLOPS["bf16"]
 
 
-def family_bound_s(ctx: Context, family: dict) -> float:
-    """The least seconds, per request, of the work ``family`` carries on
-    this path: its entries grouped by kernel call (a tap fused into a conv's
+def family_bound_s(ctx: Context, family: str) -> float:
+    """The least seconds, per request, of the work that the kernel family
+    ``family`` carries on this path, as the configuration's architecture
+    lists it: its entries grouped by kernel call (a tap fused into a conv's
     call shares its input, read once), each call's bound the larger of its
-    operations over the peak and its bytes over the bandwidth."""
-    layers = work.layer_by_name(ctx.model)
+    operations over the peak and its bytes over the bandwidth. 0 where the
+    architecture gives the family no work here."""
+    arch = ctx.architecture
+    layers = work.layer_by_name(arch, ctx.model)
     calls: dict[str, list] = {}
-    for entry in family["work"]:
-        if entry["path"] != ctx.kind or entry.get("task", ctx.task) != ctx.task:
-            continue
+    for entry in arch.kernel_work(family, ctx.kind, ctx.task):
         if "loss" in entry:
             flops, nbytes, op = work.loss_work(ctx.model, entry["loss"], ctx.task)
             call = calls.setdefault(f"loss.{entry['loss']}", [0.0, 0.0, 0.0, op])
@@ -84,14 +87,15 @@ def family_pattern(family: dict) -> re.Pattern:
 def roofline(ctx: Context, kind: str):
     """Percent: the bound time of the work the hand kernels carry over
     their device time, summed over the kernel families present in the trace
-    (a family with no kernel in the trace is left out, work and time)."""
+    (a family with no kernel in the trace is left out, work and time; one
+    present with no work on this architecture counts its time, bound 0)."""
     if ctx.kind != kind:
         return None
     bound = device = 0.0
-    for family in ctx.families.values():
+    for name, family in ctx.families.items():
         seconds = per_request(ctx, ctx.trace.kernel_seconds(family_pattern(family)))
         if seconds > 0:
-            bound += family_bound_s(ctx, family)
+            bound += family_bound_s(ctx, name)
             device += seconds
     if device == 0:
         return None

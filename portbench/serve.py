@@ -35,9 +35,9 @@ def windows_per_volume(config: dict) -> int:
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         min_requests: int = 0) -> dict:
-    config, traffic = cell.config, cell.traffic
-    weights = make_weights(config["model"], seed, device)
-    model = program.build_model(config, weights, device, remat=False).eval()
+    config, traffic, arch = cell.config, cell.traffic, cell.architecture
+    weights = make_weights(arch, config["model"], seed, device)
+    model = program.build_model(arch, config, weights, device, remat=False).eval()
     del weights
     validator = program.validator(config, model, device)
     to_labels = program.label_map_fn(config)
@@ -82,29 +82,29 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         out["context"] = readings.Context(
             kind="serve", task=config["task"], model=config["model"], trace=tr, traced=n,
             completed=attempted - failed, window_s=window_s, items=windows_per_volume(config),
-            families={}, peak_bytes=peak)
+            families={}, peak_bytes=peak, architecture=arch)
 
     del validator, model
     gc.collect()
     devices.free(device)
     judged = time.perf_counter()
-    out["numbers"] = {"gap_max": judge_served(config, seed, device, served, pool)}
+    out["numbers"] = {"gap_max": judge_served(arch, config, seed, device, served, pool)}
     out["judge_s"] = time.perf_counter() - judged
     return out
 
 
-def judge_served(config: dict, seed: int, device, served: list, pool: list) -> float:
+def judge_served(arch, config: dict, seed: int, device, served: list, pool: list) -> float:
     """The widest gap over every served label map (``served``: (request
     index, label map) of volume ``pool[index % len(pool)]``), the
     reference's logits made once per pool volume."""
     if not served:
         return math.inf
     judge.reference_precision()
-    weights = make_weights(config["model"], seed, device)
+    weights = make_weights(arch, config["model"], seed, device)
     pool_size = len(pool)
     worst = 0.0
     for k in sorted({i % pool_size for i, _ in served}):
-        ref = judge.reference_logits(weights, config, pool[k], device)
+        ref = judge.reference_logits(arch, weights, config, pool[k], device)
         for i, answer in served:
             if i % pool_size == k:
                 worst = max(worst, judge.serve_gap(ref, answer, config["task"]))

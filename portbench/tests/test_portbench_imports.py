@@ -1,8 +1,8 @@
 """What a run imports: no JAX, no flax, nothing of the JAX package
 (``medseg`` and ``medseg.*``; ``medseg_torch`` is another top-level name),
-and nothing of the program in the reference. Each check runs in a fresh
-interpreter and compares the top-level part of every name in
-``sys.modules`` whole."""
+and nothing of the program in the reference, nor in an architecture's file
+until a run builds its model. Each check runs in a fresh interpreter and
+compares the top-level part of every name in ``sys.modules`` whole."""
 
 from __future__ import annotations
 
@@ -25,19 +25,26 @@ REFERENCE = ["portbench.reference.unetr", "portbench.reference.swi", "portbench.
              "portbench.params"]
 
 
-def top_level_after(modules: list[str], readers: bool = False) -> set[str]:
+def top_level_after(modules: list[str], readers: bool = False,
+                    architectures: bool = False) -> set[str]:
     code = (
         "import importlib, json, sys\n"
+        "from pathlib import Path\n"
+        "folder = Path('portbench')\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
     )
     if readers:
         code += (
             "from portbench import manifest\n"
-            "from pathlib import Path\n"
-            "folder = Path('portbench')\n"
             "for p in sorted((folder / 'metrics').glob('*.py')):\n"
             "    manifest.metric_reader(folder, p.stem)\n"
+        )
+    if architectures:
+        code += (
+            "from portbench import manifest\n"
+            "for p in sorted((folder / 'architectures').glob('*.py')):\n"
+            "    manifest.architecture(folder, p.stem)\n"
         )
     code += "print(json.dumps(sorted({n.split('.')[0] for n in sys.modules})))\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -53,6 +60,15 @@ def test_a_run_loads_no_jax_and_no_jax_package(modules, readers):
     assert not loaded & FORBIDDEN, loaded & FORBIDDEN
     if modules == HARNESS + PROGRAM:
         assert "medseg_torch" in loaded  # a different top-level name from medseg
+
+
+def test_architecture_files_load_nothing_of_the_program_at_import():
+    """Each ``architectures/*.py`` imports the program only inside ``build``,
+    when a run starts."""
+    assert sorted((REPO / "portbench" / "architectures").glob("*.py"))
+    loaded = top_level_after([], architectures=True)
+    assert "portbench" in loaded
+    assert not loaded & (FORBIDDEN | {"medseg_torch"}), loaded & (FORBIDDEN | {"medseg_torch"})
 
 
 def test_the_reference_loads_nothing_of_the_program():

@@ -11,7 +11,8 @@ import torch
 from portbench import manifest, readings, tracing
 from portbench.tests.tiny import REPO
 
-BTCV = manifest.load(REPO, "btcv-serve-ct512").config["model"]
+CELL = manifest.load(REPO, "btcv-serve-ct512")
+BTCV = CELL.config["model"]
 
 
 def test_run_fails_without_a_card_and_prints_no_result():
@@ -69,7 +70,7 @@ def test_readers_on_a_made_up_trace():
     families = manifest.kernel_families(REPO / "portbench")
     ctx = readings.Context(kind="serve", task="ct", model=BTCV, trace=made_up_trace(), traced=2,
                            completed=3, window_s=2.0, items=300, families=families,
-                           peak_bytes=2**30)
+                           peak_bytes=2**30, architecture=CELL.architecture)
     folder = REPO / "portbench"
     read = {name: manifest.metric_reader(folder, name)(ctx)
             for name in ("host.launches.serve", "device.idle_share.serve",

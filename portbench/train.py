@@ -50,10 +50,11 @@ def program_readings(state, weights0: dict, step, batches: list[dict]) -> dict:
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         min_requests: int = 0) -> dict:
-    config, traffic = cell.config, cell.traffic
+    config, traffic, arch = cell.config, cell.traffic, cell.architecture
     checked = traffic["checked_steps"]
-    weights = make_weights(config["model"], seed, device)
-    model = program.build_model(config, weights, device, remat=config["train"]["remat"]).train()
+    weights = make_weights(arch, config["model"], seed, device)
+    model = program.build_model(arch, config, weights, device,
+                                remat=config["train"]["remat"]).train()
     state = program.train_state(config, model, stream_seed(seed, STATE_STREAM))
     step = program.train_step(config, model)
     pool = inputs.train_pool(config, traffic, seed, device)
@@ -104,19 +105,19 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         out["context"] = readings.Context(
             kind="train", task=config["task"], model=config["model"], trace=tr, traced=n,
             completed=attempted - failed, window_s=window_s, items=crops, families={},
-            peak_bytes=peak)
+            peak_bytes=peak, architecture=arch)
 
     del state, step, model
     gc.collect()
     devices.free(device)
     judged = time.perf_counter()
-    out["numbers"] = judge_steps(config, seed, device, got, pool[:checked])
+    out["numbers"] = judge_steps(arch, config, seed, device, got, pool[:checked])
     out["judge_s"] = time.perf_counter() - judged
     return out
 
 
-def judge_steps(config: dict, seed: int, device, got: dict, batches: list[dict]) -> dict:
+def judge_steps(arch, config: dict, seed: int, device, got: dict, batches: list[dict]) -> dict:
     judge.reference_precision()
-    weights0 = make_weights(config["model"], seed, device)
-    ref = judge.reference_steps(weights0, config, batches, device)
+    weights0 = make_weights(arch, config["model"], seed, device)
+    ref = judge.reference_steps(arch, weights0, config, batches, device)
     return judge.train_numbers(got, ref)

@@ -1,5 +1,7 @@
-"""Operations and bytes of UNETR's layers, counted from the configuration's
-widths, never from tensors the program made.
+"""Operations and bytes of a model's layers, counted from the configuration's
+widths, never from tensors the program made. An architecture's file
+(``architectures/<name>.py``) lists its layers as ``Layer`` rows; the
+arithmetic of each kind of row is here.
 
 The arithmetic of the bounds is a copy of
 ``medseg_torch/kernels/kernel_check.py`` (``_conv_flops``, ``_nbytes``,
@@ -26,7 +28,9 @@ class Layer:
     """One matmul or conv of a window's forward pass. ``kind``: "conv"
     (stride 1, same padding, ``taps`` = k^3), "transp" (k = s = 2),
     "linear" (``voxels`` = tokens), "attention" (QK^T and AV of every head:
-    ``c_in`` = hidden, ``voxels`` = tokens). ``voxels``: output positions."""
+    ``c_in`` = hidden, ``voxels`` = tokens, split into ``windows`` equal
+    windows that attend within themselves: 4 x windows x (tokens per
+    window)^2 x hidden operations). ``voxels``: output positions."""
 
     name: str
     kind: str
@@ -34,11 +38,13 @@ class Layer:
     c_out: int
     taps: int
     voxels: int
+    windows: int = 1
 
     @property
     def flops(self) -> float:
         if self.kind == "attention":
-            return 2.0 * 2.0 * self.voxels * self.voxels * self.c_in
+            per_window = self.voxels // self.windows
+            return 2.0 * 2.0 * self.windows * per_window * per_window * self.c_in
         if self.kind == "transp":  # each output voxel takes one of the 8 taps
             return 2.0 * self.c_in * self.c_out * self.voxels
         return 2.0 * self.taps * self.c_in * self.c_out * self.voxels
@@ -52,57 +58,14 @@ class Layer:
         return 0 if self.kind == "attention" else self.c_in * self.c_out * self.taps
 
 
-def layers(m: dict) -> list[Layer]:
-    """The forward pass of one window of edge ``img_size``, layer by layer,
-    named as the MONAI modules are."""
-    edge, p, hid = m["img_size"], m["patch_size"], m["hidden_size"]
-    fs, c_in, k = m["feature_size"], m["in_channels"], m["out_channels"]
-    tokens = (edge // p) ** 3
-    out = [Layer("vit.patch_embedding", "linear", p**3 * c_in, hid, 1, tokens)]
-    for i in range(m["num_layers"]):
-        b = f"vit.blocks.{i}"
-        out += [Layer(f"{b}.attn.qkv", "linear", hid, 3 * hid, 1, tokens),
-                Layer(f"{b}.attn.sdpa", "attention", hid, hid, 1, tokens),
-                Layer(f"{b}.attn.out_proj", "linear", hid, hid, 1, tokens),
-                Layer(f"{b}.mlp.linear1", "linear", hid, m["mlp_dim"], 1, tokens),
-                Layer(f"{b}.mlp.linear2", "linear", m["mlp_dim"], hid, 1, tokens)]
-
-    def vox(scale):  # voxels of a stage at edge / scale
-        return (edge // scale) ** 3
-
-    def res_block(prefix, cin, cout, v):
-        rows = [Layer(f"{prefix}.conv1", "conv", cin, cout, 27, v),
-                Layer(f"{prefix}.conv2", "conv", cout, cout, 27, v)]
-        if cin != cout:
-            rows.append(Layer(f"{prefix}.conv3", "conv", cin, cout, 1, v))
-        return rows
-
-    grid = edge // p  # the token grid's edge: the encoders start there
-    out += res_block("encoder1.layer", c_in, fs, vox(1))
-    for name, width, ups in (("encoder2", 2 * fs, 2), ("encoder3", 4 * fs, 1),
-                             ("encoder4", 8 * fs, 0)):
-        size = 2 * grid
-        out.append(Layer(f"{name}.transp_conv_init", "transp", hid, width, 8, size**3))
-        for j in range(ups):
-            size *= 2
-            out.append(Layer(f"{name}.blocks.{j}", "transp", width, width, 8, size**3))
-    size = grid
-    for name, c_up, width in (("decoder5", hid, 8 * fs), ("decoder4", 8 * fs, 4 * fs),
-                              ("decoder3", 4 * fs, 2 * fs), ("decoder2", 2 * fs, fs)):
-        size *= 2
-        out.append(Layer(f"{name}.transp_conv", "transp", c_up, width, 8, size**3))
-        out += res_block(f"{name}.conv_block", 2 * width, width, size**3)
-    out.append(Layer("out.conv", "conv", fs, k, 1, vox(1)))
-    return out
+def forward_flops(arch, m: dict) -> float:
+    """Operations of one window's forward pass (matmuls and convs) of the
+    model group ``m`` of architecture ``arch`` (``manifest.architecture``)."""
+    return sum(layer.flops for layer in arch.layers(m))
 
 
-def forward_flops(m: dict) -> float:
-    """Operations of one window's forward pass (matmuls and convs)."""
-    return sum(layer.flops for layer in layers(m))
-
-
-def layer_by_name(m: dict) -> dict[str, Layer]:
-    return {layer.name: layer for layer in layers(m)}
+def layer_by_name(arch, m: dict) -> dict[str, Layer]:
+    return {layer.name: layer for layer in arch.layers(m)}
 
 
 def pass_work(layer: Layer, pass_: str, act: str = "bf16") -> tuple[float, float, float, str]:
