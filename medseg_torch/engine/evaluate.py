@@ -70,9 +70,11 @@ class Validator:
     """Sliding-window validator over a dataset of whole volumes.
 
     Args:
-      model: ``medseg_torch.models.unetr.UNETR``; moved to ``device``. Its
-        ``dtype`` (default fp32) is the kernels' compute dtype and the dtype
-        of the window logits.
+      model: ``medseg_torch.models.unetr.UNETR`` or any other model whose
+        ``forward(x, return_encoder_features=False)`` gives window logits
+        (``models.swin_unetr.SwinUNETR``, always served through its module);
+        moved to ``device``. Its ``dtype`` (default fp32) is the kernels'
+        compute dtype and the dtype of the window logits.
       n_classes: output channels.
       task: "ct" (argmax/one-hot post) or "mri" (sigmoid + threshold).
       spec: sliding-window grid/blending configuration.

@@ -90,13 +90,15 @@ def chain_has_kernels(model: UNETR, c_in: int) -> bool:
             and outhead_has_kernel(fs) and outhead_row_has_kernel(fs, k_pad))
 
 
-def fast_path_supported(model: UNETR, x_shape, device) -> bool:
+def fast_path_supported(model, x_shape, device) -> bool:
     """Whether the fused chain serves windows of ``x_shape`` (B, C_in, D, H,
-    W) on ``device``: the chain is correct for the model and, on a CUDA
-    device, the window is a cube of at least ``MIN_ROI`` and every kernel of
-    the chain has the widths (``chain_has_kernels``). On the CPU the chain
-    runs the kernels' plain versions, which take every width and size."""
-    if not _chain_correct(model, x_shape):
+    W) on ``device``: the model is a ``UNETR`` (any other model, such as a
+    ``SwinUNETR``, is served through its module), the chain is correct for
+    it and, on a CUDA device, the window is a cube of at least ``MIN_ROI``
+    and every kernel of the chain has the widths (``chain_has_kernels``). On
+    the CPU the chain runs the kernels' plain versions, which take every
+    width and size."""
+    if not isinstance(model, UNETR) or not _chain_correct(model, x_shape):
         return False
     if torch.device(device).type != "cuda":
         return True

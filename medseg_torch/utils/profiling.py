@@ -24,7 +24,14 @@ clock inside the caller's own ranges:
 - ``medseg.train.backward``: ``zero_grad`` and ``loss.backward()``;
 - ``medseg.train.optimizer``: ``apply_gradients`` (AdamW's step);
 
-the last four once a ``make_train_step`` step.
+the last four once a ``make_train_step`` step. Inside a
+``models.swin_unetr.SwinUNETR``'s forward:
+
+- ``medseg.swin.encoder``: the Swin encoder's forward (patch embedding,
+  the four stages, the five taps), once a forward;
+- ``medseg.swin.attention``: one block's window-attention part (norm, pad,
+  roll, partition, attention, reverse, crop), once a block a forward (8 at
+  depths 2/2/2/2), and again in each recompute under remat.
 """
 
 from __future__ import annotations
