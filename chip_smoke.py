@@ -64,6 +64,13 @@ and on BraTS. Phases, each raising on failure:
    on 2 classes and on a ragged 4x97^3 volume, and by their device kernels'
    durations in the profiler's trace); then two K7 calls on config 5's bf16
    logits, whose sums must be bitwise equal;
+8b. norm-kernel: N1, the blocks' instance norm (``norm_of``), forward and
+   backward, with the leaky ReLU and with the residual add and the leaky
+   ReLU, at the main path's shapes (4x16x128^3, 4x16x96^3, 4x48x96^3,
+   4x32x48^3, 4x128x12^3, 6x64x24^3), fp32 and bf16, against the plain
+   versions: errors, device ms from the profiler's trace beside the bound
+   (bytes / 3.35 TB/s), the plain version's and ``F.instance_norm``'s
+   (the library yardstick, without the epilogue) CUDA-event ms;
 9. the training step: loss and gradients through the kernels (bf16, remat)
    against the fp32 module without kernels at the same weights and batch;
    then ``make_train_step``: one warm step and 10 timed steps on that batch,
@@ -176,6 +183,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import importlib.util
 import json
 import os
@@ -264,8 +272,13 @@ CONFIG4_VOLUME = (512, 512, 160)
 TRACE_PAIRS = 3  # pairs of profiler traces of a graphed and an eager volume (timed_volume)
 ZROW_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_row_of")
 FLAT_KERNELS = ("conv3x3x3_of", "conv3x3x3_of_cat2", "conv3x3x3_of_combine", "outhead_of")
+NORM_WRAPPERS = ("instance_norm_fwd", "instance_norm_bwd")  # N1, in every block norm on the card
 TRAIN_KERNELS = ("conv3x3x3_of", "conv3x3x3_wgrad_of", "dice_ce_sums", "dice_ce_bwd", K1_TC,
-                 K6_TC, K1_NARROW, K6_NARROW)
+                 K6_TC, K1_NARROW, K6_NARROW) + NORM_WRAPPERS
+# N1's row of the kernel line: its source, and its timed bf16 cases
+NORM_SOURCE = "medseg_torch/kernels/csrc/instnorm.cu"
+NORM_TIMED = ("instance_norm fwd residual+leaky 4x16x128^3",
+              "instance_norm bwd residual+leaky 4x16x128^3")
 # per config-4 volume, one launch per batch of 6 windows: 10 d-starts x 5
 # groups of 2 h-rows (3 w-windows each)
 CONFIG4_BATCHES = {"outhead_row_of": 50, "conv3x3x3_of_cat2": 50, "conv3x3x3_of_combine": 50}
@@ -558,9 +571,10 @@ def all_launches() -> dict:
     """Launches of each kernel, ``<name>[tc]`` those of K1-K6 and K9 that
     took a tensor-core route, ``<name>[narrow]`` those of K1 and K6 that took
     the narrow-input kernel."""
-    from medseg_torch.kernels import conv_flat, conv_of, loss_of
+    from medseg_torch.kernels import conv_flat, conv_of, loss_of, norm_of
 
-    wrappers = {fn.__name__: fn for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS}
+    wrappers = {fn.__name__: fn for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS
+                + norm_of.KERNELS}
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in CUDA_CORE_SOURCES:
         counts[f"{name}[tc]"] = wrappers[name].tc_launches
@@ -570,11 +584,12 @@ def all_launches() -> dict:
 
 
 def reset_launches() -> None:
-    from medseg_torch.kernels import conv_flat, conv_of, loss_of
+    from medseg_torch.kernels import conv_flat, conv_of, loss_of, norm_of
 
     conv_of.reset_launches()
     loss_of.reset_launches()
     conv_flat.reset_launches()
+    norm_of.reset_launches()
 
 
 def phase_kernels(device, card: str, table: dict, cases_fn, label: str,
@@ -645,11 +660,59 @@ def phase_loss_repeat(device, card: str) -> None:
         raise RuntimeError("dice_ce_sums: two calls on the same inputs gave different sums")
 
 
+def phase_norm(device, card: str) -> dict:
+    """N1 against its plain version at the main path's shapes, fp32 and
+    bf16, timed; returns the kernel line's row (its bf16 timed cases)."""
+    from medseg_torch.kernels import kernel_check
+
+    row: dict = {"name": "instance_norm", "route": "cuda", "source": NORM_SOURCE,
+                 "replaces": None, "max_abs_err": 0.0, "cases": {}}
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in kernel_check.norm_cases(device, dtype):
+            r = kernel_check.run_case(case, dtype, timed=True)
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            if dtype == torch.bfloat16 and case.name in NORM_TIMED:
+                row["cases"][case.name] = {k: r[k] for k in ("device_ms", "ms", "plain_ms",
+                                                             "library_ms", "bound_ms")}
+            log(f"[norm-kernel] {str(dtype)[6:]:8s} {case.name:52s} out_err {r['out_err']:.2e} "
+                f"sums_err {r['stats_err']:.2e} device {r['device_ms']:.4f} ms (wrapper "
+                f"{r['ms']:.3f}) bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{100 * r['bound_ms'] / r['device_ms']:.1f}%) plain {r['plain_ms']:.3f} ms "
+                f"library {r['library_ms']:.3f} ms {'ok' if r['ok'] else 'FAIL'} [{card}]")
+            if not r["ok"]:
+                failed.append((str(dtype), case.name))
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"N1 disagrees with its plain version: {failed}")
+    return row
+
+
+def plain_norms(model):
+    """``model`` with each block's instance norm on its plain PyTorch
+    version (``norm_of.instance_norm_fwd_plain``: the norm, its cast, the
+    residual add and the leaky ReLU as separate operations) in place of N1,
+    so that a reference shares no kernel with the path it checks; returns
+    it."""
+    from medseg_torch.kernels import norm_of
+    from medseg_torch.models.blocks import InstanceNorm
+
+    def plain(norm, x, *, leaky=False, residual=None):
+        return norm_of.instance_norm_fwd_plain(x, norm.weight, norm.bias, residual, leaky,
+                                               norm.eps)[0]
+
+    for module in model.modules():
+        if isinstance(module, InstanceNorm):
+            module.forward = functools.partial(plain, module)
+    return model
+
+
 def fp32_twin(model):
-    """The same weights in a module that computes in fp32."""
+    """The same weights in a module that computes in fp32, its norms on
+    their plain version (``plain_norms``)."""
     twin = copy.deepcopy(model)
     twin.dtype = None
-    return twin
+    return plain_norms(twin)
 
 
 def phase_forward(device, card: str):
@@ -1304,7 +1367,8 @@ def phase_routes(device, card: str) -> dict:
 def routes_serving(device, card: str) -> None:
     """Config 4's volume on the fused z-row path, on the module forward
     through the flat walk (``use_fast_path=False``: SDPA, cuBLAS and cuDNN,
-    no hand kernel) and on the fused path with the ViT's GELU on tanh."""
+    no hand kernel: a copy of the model on ``plain_norms``) and on the fused
+    path with the ViT's GELU on tanh."""
     from medseg_torch.engine.evaluate import Validator
     from medseg_torch.models.unetr import init_weights, unetr_b16
     from medseg_torch.ops.sliding_window import SlidingWindowSpec
@@ -1314,7 +1378,8 @@ def routes_serving(device, card: str) -> None:
     spec = SlidingWindowSpec(roi=(CROP,) * 3, overlap=0.5, sw_batch=4, mode="gaussian")
     volume = np.random.default_rng(0).standard_normal(CONFIG4_VOLUME + (1,), dtype=np.float32)
     fused = Validator(model, N_CLASSES, "ct", spec, device=device)
-    eager = Validator(model, N_CLASSES, "ct", spec, use_fast_path=False, device=device)
+    eager = Validator(plain_norms(copy.deepcopy(model)), N_CLASSES, "ct", spec,
+                      use_fast_path=False, device=device)
     # a runner of its own: a captured graph keeps the GELU it was captured with
     fused_tanh = Validator(model, N_CLASSES, "ct", spec, device=device)
     if not fused.use_fast_path:
@@ -2135,6 +2200,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_kernels(device, card, table, kernel_check.training_cases, "train-kernel")
     phase_loss_repeat(device, card)
+    norm_row = phase_norm(device, card)
+    torch.cuda.empty_cache()
     paths["train"] = phase_train(device, card)
     torch.cuda.empty_cache()
     paths["config-2"] = phase_routes(device, card)
@@ -2156,6 +2223,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["dp-2"] = phase_dp2(device, card)
     kernels = kernel_rows(table, paths)
+    norm_row["launches_by_path"] = {path: launches.get("instance_norm_fwd")
+                                    for path, launches in paths.items()}
+    kernels.append(norm_row)
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,13 @@ _SIGNATURES = {
     "medseg_dice_ce_sums": [_I] * 2 + [_P] * 4 + [_I] * 2 + [ctypes.c_longlong, _I, _I, _P],
     # device, bf16, logits, labels, ca, cb, cec, dlogits, B, K, V, vec, blocks, stream
     "medseg_dice_ce_bwd": [_I] * 2 + [_P] * 6 + [_I] * 2 + [ctypes.c_longlong, _I, _I, _P],
+    # device, bf16, act, res, x, r, gamma, beta, y, mean, rstd, part, B, C, V,
+    # nchunks, threads, eps, vec, stream
+    "medseg_instnorm_fwd": [_I] * 4 + [_P] * 8 + [_I, _I, ctypes.c_longlong, _I, _I,
+                                                  ctypes.c_float, _I, _P],
+    # device, bf16, act, res, dy, x, r, mean, rstd, gamma, beta, part, dx, dr,
+    # dgamma, dbeta, B, C, V, nchunks, vec, stream
+    "medseg_instnorm_bwd": [_I] * 4 + [_P] * 12 + [_I, _I, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

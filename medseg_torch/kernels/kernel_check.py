@@ -36,13 +36,14 @@ import json
 import os
 import re
 import tempfile
+import time
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from medseg_torch.kernels import conv_flat, conv_of, loss_of
+from medseg_torch.kernels import conv_flat, conv_of, loss_of, norm_of
 
 OUT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STATS_TOL = 1e-3
@@ -395,6 +396,56 @@ def flat_cases(device, dtype: torch.dtype, *, batch: int = 4, full: int = 96) ->
     return cases
 
 
+# (B, C, edge) of N1 on the main path: BraTS's, CT's and Swin's full
+# resolution, CT's decoder3, the serving decoder5 and decoder4 (6 windows)
+NORM_SHAPES = ((4, 16, 128), (4, 16, 96), (4, 48, 96), (4, 32, 48), (4, 128, 12), (6, 64, 24))
+
+
+def _present(outputs: tuple) -> tuple:
+    return tuple(t for t in outputs if t is not None)
+
+
+def norm_cases(device, dtype: torch.dtype, shapes=NORM_SHAPES) -> list[Case]:
+    """N1 (``norm_of``) at ``shapes``: the forward and the backward, each
+    with the leaky ReLU and with the residual add and the leaky ReLU (the
+    blocks' norm1 and norm2), on a conv-output-like x (an offset and a scale
+    per channel). The backward takes the kernel forward's mean and rstd, on
+    both sides. Library: ``F.instance_norm`` (cuDNN's batch norm over B*C
+    planes; no residual or activation), its forward, and its backward from
+    a graph built outside the timing."""
+    g = torch.Generator().manual_seed(5)
+    cases = []
+    for b, c, e in shapes:
+        shape = (b, c, e, e, e)
+        shift = torch.randn((1, c, 1, 1, 1), generator=g) * 2.0
+        x = (torch.randn(shape, generator=g) * 1.5 + shift).to(device=device, dtype=dtype)
+        r = torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+        dy = torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+        w = (torch.rand((c,), generator=g) + 0.5).to(device)
+        bias = (torch.randn((c,), generator=g) * 0.5).to(device)
+        n = x.numel()
+        xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, bias))
+        lib_out = F.instance_norm(xg, weight=wg, bias=bg, eps=norm_of.NORM_EPS)
+        for epilogue, res in (("leaky", None), ("residual+leaky", r)):
+            _, mean, rstd = norm_of.instance_norm_fwd(x, w, bias, res, True)
+            name = f"{epilogue} {b}x{c}x{e}^3"
+            cases.append(Case(
+                f"instance_norm fwd {name}", norm_of.instance_norm_fwd,
+                norm_of.instance_norm_fwd_plain, (x, w, bias, res, True), flops=10.0 * n,
+                fp32_math=True, device_kernels="instnorm_",
+                library=lambda x=x, w=w, bias=bias: F.instance_norm(x, weight=w, bias=bias,
+                                                                    eps=norm_of.NORM_EPS)))
+            cases.append(Case(
+                f"instance_norm bwd {name}",
+                lambda *a: _present(norm_of.instance_norm_bwd(*a)),
+                lambda *a: _present(norm_of.instance_norm_bwd_plain(*a)),
+                (dy, x, res, mean, rstd, w, bias, True), flops=12.0 * n, fp32_math=True,
+                device_kernels="instnorm_",
+                library=lambda out=lib_out, xg=xg, wg=wg, bg=bg, dy=dy: torch.autograd.grad(
+                    out, (xg, wg, bg), dy, retain_graph=True)))
+    return cases
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
@@ -431,13 +482,41 @@ def time_ms(fn: Callable, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+# A profiler trace on the H100 (torch 2.11) lacks the kernel records of the
+# launches of about its first millisecond, whose launch calls it holds, on a
+# graphed walk and an eager one alike, and now and then some hundreds more.
+TRACE_LEAD_SPINS = 16  # spin kernels a trace starts with, before ``run()``
+TRACE_LEAD_S = 0.005  # and the host's wait after them
+_LAUNCH_CALL = re.compile(r"LaunchKernel")
+
+
+def _lost_records(events: list[dict], lead: int) -> int:
+    """Launch calls, past the first ``lead``, whose kernel has no record in
+    ``events`` (a trace's events: a kernel carries its launch call's
+    correlation id)."""
+    recorded = {e["args"].get("correlation") for e in events if e.get("cat") == "kernel"}
+    calls = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and _LAUNCH_CALL.search(e["name"])), key=lambda e: e["ts"])
+    return sum(e["args"].get("correlation") not in recorded for e in calls[lead:])
+
+
 def trace_kernels(run: Callable, pattern: str = "") -> list[dict]:
     """The device kernels of one ``run()`` whose names match ``pattern``
     (all by default), as ``torch.profiler``'s trace events (``name``, ``ts``
-    and ``dur`` in us)."""
+    and ``dur`` in us). ``run()`` starts after ``TRACE_LEAD_SPINS`` spin
+    kernels (``torch.cuda._sleep``, left out of the result) and
+    ``TRACE_LEAD_S``, past the trace's first millisecond. A trace in which
+    a launch call of ``run()`` has no kernel record is taken again, up to
+    three times, the last returned as it is: a graph replay's kernels have
+    no launch calls of their own, so only a comparison shows their losses."""
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then returns a trace without device events
+    kernels: list[dict] = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_LEAD_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_LEAD_S)
             run()
             torch.cuda.synchronize()
         fd, path = tempfile.mkstemp(suffix=".json")
@@ -448,9 +527,12 @@ def trace_kernels(run: Callable, pattern: str = "") -> list[dict]:
                 events = json.load(f)["traceEvents"]
         finally:
             os.remove(path)
-        events = [e for e in events if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
-        if events:
-            return events
+        kernels = [e for e in events if e.get("cat") == "kernel" and "spin_kernel" not in e["name"]
+                   and re.search(pattern, e["name"])]
+        if kernels and not _lost_records(events, TRACE_LEAD_SPINS):
+            return kernels
+    if kernels:
+        return kernels
     raise RuntimeError(f"the profiler recorded no device kernel matching {pattern!r}")
 
 

@@ -11,7 +11,10 @@ a bias, as the flax blocks do, so the parameter sets are identical.
 Each block takes a compute ``dtype`` as the flax blocks do: parameters stay
 fp32, each layer casts its operands (and its bias) to ``dtype`` (None: the
 promoted type of input and parameters), norms compute fp32 statistics and
-return their input's dtype. With gradients enabled, a 3x3x3 conv whose shape,
+return their input's dtype. ``InstanceNorm`` takes the leaky ReLU and the
+residual add that follow it (``kernels.norm_of.instance_norm``: on the CPU
+PyTorch operations, the norm, its cast, the add and the activation in that
+order; on a CUDA tensor the N1 kernels), inside a ``medseg.norm`` span. With gradients enabled, a 3x3x3 conv whose shape,
 dtype and device ``kernels.conv3d.train_route`` accepts runs through
 ``Conv3x3x3Fn`` (K1 forward and data gradient, K6 filter gradient), its
 output rounded to the compute dtype before the bias, as the JAX routed conv
@@ -26,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medseg_torch.utils.profiling import span
+
 LEAKY_SLOPE = 0.01  # MONAI dynunet act: leakyrelu(negative_slope=0.01)
 NORM_EPS = 1e-5  # torch InstanceNorm3d default eps
 
@@ -34,8 +39,9 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
-# after the names above, which kernels.conv_of imports from this module
-from medseg_torch.kernels import conv3d  # noqa: E402
+# after the names above, which kernels.conv_of and kernels.norm_of import
+# from this module
+from medseg_torch.kernels import conv3d, norm_of  # noqa: E402
 
 
 def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tensor) -> torch.dtype:
@@ -46,7 +52,9 @@ def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tenso
 
 class InstanceNorm(nn.Module):
     """Affine instance norm over the spatial dims, per sample and channel,
-    statistics in fp32 whatever the input dtype (flax ``InstanceNorm``)."""
+    statistics in fp32 whatever the input dtype (flax ``InstanceNorm``),
+    returned in the input's dtype; ``residual`` is added to it and ``leaky``
+    applies the blocks' leaky ReLU after that."""
 
     def __init__(self, channels: int, eps: float = NORM_EPS) -> None:
         super().__init__()
@@ -54,15 +62,11 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        dims = tuple(range(2, x.ndim))
-        mean = xf.mean(dim=dims, keepdim=True)
-        var = (xf - mean).square().mean(dim=dims, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        y = y * self.weight.float().view(shape) + self.bias.float().view(shape)
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, *, leaky: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        with span("medseg.norm"):
+            return norm_of.instance_norm(x, self.weight, self.bias, self.eps, leaky=leaky,
+                                         residual=residual)
 
 
 class Conv3d(nn.Module):
@@ -120,10 +124,9 @@ class UnetResBlock(nn.Module):
             self.norm3 = InstanceNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = leaky_relu(self.norm1(self.conv1(x)))
-        y = self.norm2(self.conv2(y))
+        y = self.norm1(self.conv1(x), leaky=True)
         r = self.norm3(self.conv3(x)) if self.downsample else x
-        return leaky_relu(y + r)
+        return self.norm2(self.conv2(y), residual=r, leaky=True)
 
 
 class UnetBasicBlock(nn.Module):
@@ -137,8 +140,8 @@ class UnetBasicBlock(nn.Module):
         self.norm2 = InstanceNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = leaky_relu(self.norm1(self.conv1(x)))
-        return leaky_relu(self.norm2(self.conv2(y)))
+        y = self.norm1(self.conv1(x), leaky=True)
+        return self.norm2(self.conv2(y), leaky=True)
 
 
 def _conv_block(in_ch: int, out_ch: int, res_block: bool, dtype: torch.dtype | None) -> nn.Module:

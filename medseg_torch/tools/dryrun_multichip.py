@@ -85,10 +85,10 @@ def launch_counts() -> dict:
     """Each kernel wrapper's launches in this process, ``<name>[tc]`` those
     that took the tensor cores and ``<name>[narrow]`` those that took the
     narrow-input kernel."""
-    from medseg_torch.kernels import conv_flat, conv_of, loss_of
+    from medseg_torch.kernels import conv_flat, conv_of, loss_of, norm_of
 
     counts = {}
-    for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS:
+    for fn in conv_of.KERNELS + loss_of.KERNELS + conv_flat.KERNELS + norm_of.KERNELS:
         counts[fn.__name__] = fn.launches
         for route in ("tc", "narrow"):
             if hasattr(fn, f"{route}_launches"):

@@ -32,6 +32,14 @@ the last four once a ``make_train_step`` step. Inside a
 - ``medseg.swin.attention``: one block's window-attention part (norm, pad,
   roll, partition, attention, reverse, crop), once a block a forward (8 at
   depths 2/2/2/2), and again in each recompute under remat.
+
+Inside every ``models.blocks.InstanceNorm``'s forward (the conv blocks of
+UNETR and Swin UNETR, on every path that runs them as modules):
+
+- ``medseg.norm``: one instance norm with its leaky ReLU and residual add
+  (``kernels.norm_of.instance_norm``), once a norm a forward, and again in
+  each recompute under remat; on a CUDA tensor it holds one forward
+  launch of the N1 kernels (``instnorm_fwd_*_kernel``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,21 @@
+"""Device ms per volume of the instance-norm kernels of the conv blocks
+(``instnorm_*_kernel``, by name: on the serving path the norms of the
+modules the fused forward keeps, decoder5 and decoder4). With
+``models.elementwise_ms.serve`` it gives the models layer's device time.
+None where the trace holds no such kernel (a program that runs the norm as
+PyTorch operations)."""
+
+import re
+
+from portbench import readings
+
+NORM_KERNELS = re.compile(r"instnorm_\w+_kernel")
+
+
+def read(ctx):
+    if ctx.kind != "serve":
+        return None
+    seconds = ctx.trace.kernel_seconds(NORM_KERNELS)
+    if seconds == 0:
+        return None
+    return 1e3 * readings.per_request(ctx, seconds)

@@ -61,10 +61,11 @@ def _train(task: str):
     return state, ttrain.make_train_step(model, task=task)
 
 
-def _spans(prof) -> list[tuple[str, float, float]]:
-    """The profiler's ``medseg.`` ranges as (name, start, end), by start."""
+def _spans(prof, prefixes=("medseg.serve.", "medseg.train.")) -> list[tuple[str, float, float]]:
+    """The profiler's walk and step ranges (``prefixes``) as (name, start,
+    end), by start; the models' own spans (``medseg.norm``) nest inside."""
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.name.startswith("medseg.")]
+             if e.name.startswith(prefixes)]
     return sorted(spans, key=lambda s: s[1])
 
 
