@@ -67,12 +67,9 @@
 //     NSTAGE stages), so that no tile waits for its loads; the forward
 //     transposes it to channels-last at CP >= 2, the filter gradient builds
 //     its shifted copy, 16 bytes at a time.
-// Measured on the H100 (PERF.md section 6; tools/time_routes.py,
-// tools/ablate_conv_narrow.py): 32-49% of the byte bound, 2.4-7x the CUDA-
-// core kernels; without the gather and the MMAs (the copy floor) 47-65%.
-// MEDSEG_NARROW_ABLATE (medseg_torch/tools/ablate_conv_narrow.py): 1 drops
-// the output stores (K1) / the cotangent's copies (K6, its operand then 0);
-// 2 drops the gather and the MMAs (staging and the big stream remain).
+// Measured on the H100 (PERF.md section 6; tools/time_routes.py): 32-49% of
+// the byte bound, 2.4-7x the CUDA-core kernels; a copy-only build without
+// the gather and the MMAs (the copy floor) reached 47-65%.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +77,6 @@
 #include <cstdint>
 
 #include "tc_common.cuh"
-
-#ifndef MEDSEG_NARROW_ABLATE
-#define MEDSEG_NARROW_ABLATE 0
-#endif
 
 namespace medseg {
 namespace {
@@ -140,7 +133,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The 8 bf16 of ``w`` to an x-row from x = x0 on, those inside W.
 __device__ __forceinline__ void store8(__nv_bfloat16* row, int x0, int W, bool vec,
                                        const uint32_t (&w)[4]) {
-  if constexpr (MEDSEG_NARROW_ABLATE == 1) return;
   if (vec && x0 + 8 <= W) {
     *reinterpret_cast<uint4*>(row + x0) = make_uint4(w[0], w[1], w[2], w[3]);
     return;
@@ -493,7 +485,6 @@ __global__ void __launch_bounds__(NT, Fwd<CP, CO, RES>::BLOCKS) conv_narrow_kern
         const int vb = ((z * HY + y) * F::HP + F::HX0 + xs + g) * CP;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
-          if constexpr (MEDSEG_NARROW_ABLATE == 2) break;
           uint32_t a[MT][4];
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
@@ -706,7 +697,6 @@ __global__ void __launch_bounds__(NT, Wg<CP, CO>::BLOCKS) wgrad_narrow_kernel(Wg
   auto issue = [&](int tile, unsigned char* st) {
     const Tile t = tile_at(tile, p.ntx, p.nty, p.ntz);
     issue_raw<CP>(in, t, st, async, threadIdx.x);
-    if constexpr (MEDSEG_NARROW_ABLATE == 1) return;
     const __nv_bfloat16* gb = p.g + (long long)t.b * CO * V;
     unsigned char* cot = st + L::RAW;
     if (async) {
@@ -788,14 +778,6 @@ __global__ void __launch_bounds__(NT, Wg<CP, CO>::BLOCKS) wgrad_narrow_kernel(Wg
         for (int m = 0; m < MT; ++m)
           tc::ldsm_x4(cot + ((16 * m + a_row) * L::CPITCH + r * TX + 16 * s + 8 * a_chunk) * 2,
                       a[m]);
-        if constexpr (MEDSEG_NARROW_ABLATE == 2) {
-          if (a[0][0] == 0x7fffffffu) acc[0][0][0] += 1.f;  // keeps the cotangent's reads
-          continue;
-        }
-        if constexpr (MEDSEG_NARROW_ABLATE == 1) {  // no cotangent was staged
-#pragma unroll
-          for (int m = 0; m < MT; ++m) a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0u;
-        }
         const int v = rb + 16 * s + 2 * tig;
 #pragma unroll
         for (int j = 0; j < NTW; ++j) {

@@ -86,25 +86,12 @@
 //     added them in the order the groups finished). FLAT writes its fp32
 //     output from the fragments: 8 lanes cover 32 contiguous bytes of an
 //     x-row per channel.
-// Measured on the H100: PERF.md section 6 (times, spills, occupancy, the
-// ablations of medseg_torch/tools/ablate_conv_tc.py; MEDSEG_TC_ABLATE 1
-// drops the MMAs, 2 also the channels-last staging; MEDSEG_TC_STATS 1
-// restores the atomic statistics (s, ss, rs, rss zeroed by
-// cudaMemsetAsync), 2 leaves the statistics out).
+// Measured on the H100: PERF.md section 6 (times, spills, occupancy).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <initializer_list>
-
 #include "tc_common.cuh"
-
-#ifndef MEDSEG_TC_ABLATE
-#define MEDSEG_TC_ABLATE 0
-#endif
-#ifndef MEDSEG_TC_STATS
-#define MEDSEG_TC_STATS 0  // 0: fixed order; 1: atomics (ablation); 2: none (ablation)
-#endif
 
 namespace medseg {
 namespace {
@@ -208,7 +195,6 @@ __device__ __forceinline__ void mma_step(uint32_t in_base, uint32_t w_base,
                                          const int (&vrow)[ROWS_PER_WARP], int lane,
                                          float (&acc)[ROWS_PER_WARP][CO / 8][4],
                                          float (&racc)[ROWS_PER_WARP][RES ? CO / 8 : 1][4]) {
-  if constexpr (MEDSEG_TC_ABLATE >= 1) return;
   const int a_chunk = lane >> 4;
   const int b_row = ((lane >> 4) << 3) + (lane & 7);  // channel within a 16-channel n pair
   const int b_chunk = (lane >> 3) & 1;
@@ -359,14 +345,9 @@ __device__ __forceinline__ void flush_stats(float* stat, int b, int slot, const 
       st[w * CO + tid] = 0.f;
       st[(NWARP + w) * CO + tid] = 0.f;
     }
-    if constexpr (MEDSEG_TC_STATS == 1) {
-      atomicAdd(&(k0 == 0 ? p.s : p.rs)[b * CO + tid], sum);
-      atomicAdd(&(k0 == 0 ? p.ss : p.rss)[b * CO + tid], sq);
-    } else if constexpr (MEDSEG_TC_STATS == 0) {
-      float* part = p.part + ((k0 * p.B + b) * CO + tid) * p.nslots + slot;
-      part[0] = sum;
-      part[p.B * CO * p.nslots] = sq;  // sum k0 + 1
-    }
+    float* part = p.part + ((k0 * p.B + b) * CO + tid) * p.nslots + slot;
+    part[0] = sum;
+    part[p.B * CO * p.nslots] = sq;  // sum k0 + 1
   }
 }
 
@@ -459,7 +440,6 @@ __global__ void __launch_bounds__(NT, CO == 64 ? 1 : 2) conv_tc_kernel(TcConvArg
     halo.load(xk, V, p.D, p.H, p.W, t.z0 - 1, t.y0 - 1, t.x0 - 1);
   };
   auto store_halo = [&](const Tile& t, int s, int buf) {
-    if constexpr (MEDSEG_TC_ABLATE >= 2) return;
     unsigned char* dst = smem + buf * Halo::BYTES;
     const int k = t.b * ch + chan(s);
     if constexpr (MODE == COMBINE) {
@@ -547,20 +527,11 @@ struct Plan {
 };
 
 // Before a launch of ``groups`` tile groups in all: their slots of the
-// partial sums (``p.nslots`` holds the caller's room until this check), or
-// under MEDSEG_TC_STATS 1 the sums zeroed for the atomics.
-template <bool STATS, bool RES, int CO>
-cudaError_t set_slots(TcConvArgs& p, long long groups, cudaStream_t stream) {
+// partial sums (``p.nslots`` holds the caller's room until this check).
+template <bool STATS>
+cudaError_t set_slots(TcConvArgs& p, long long groups) {
   if (!STATS) return cudaSuccess;
-  if (MEDSEG_TC_STATS == 1) {  // the atomics add into zeroed sums
-    for (float* t : {p.s, p.ss, p.rs, p.rss}) {
-      if (t == nullptr) continue;
-      const cudaError_t e = cudaMemsetAsync(t, 0, sizeof(float) * p.B * CO, stream);
-      if (e != cudaSuccess) return e;
-    }
-    return cudaSuccess;
-  }
-  if (MEDSEG_TC_STATS == 0 && groups > p.nslots) return cudaErrorInvalidValue;
+  if (groups > p.nslots) return cudaErrorInvalidValue;
   p.nslots = (int)groups;
   return cudaSuccess;
 }
@@ -568,7 +539,7 @@ cudaError_t set_slots(TcConvArgs& p, long long groups, cudaStream_t stream) {
 // After the launch: the statistics' fixed-order finish (common.cuh).
 template <bool STATS, bool RES, int CO>
 cudaError_t finish_stats(const TcConvArgs& p, cudaStream_t stream) {
-  if (!STATS || MEDSEG_TC_STATS != 0) return cudaSuccess;
+  if (!STATS) return cudaSuccess;
   // group g's tiles are g, g + nslots, ...: the finish reads slot g of b
   // only where one of them lies in b's ntz * nty * ntx tiles
   return stats_finish(p.part, p.nslots, RES ? 4 : 2, p.B, CO, p.ntz * p.nty * p.ntx, p.ntiles,
@@ -607,7 +578,7 @@ cudaError_t launch(TcConvArgs p, int device, cudaStream_t stream, Plan* plan) {
   if (p.ntiles == 0) return cudaSuccess;
   const int grid = p.ntiles < per_sm * sms ? p.ntiles : per_sm * sms;
   constexpr bool STATS = MODE != FLAT;
-  e = set_slots<STATS, RES, CO>(p, grid, stream);
+  e = set_slots<STATS>(p, grid);
   if (e != cudaSuccess) return e;
   conv_tc_kernel<MODE, RES, CO, XS><<<grid, NT, smem, stream>>>(p);
   e = cudaGetLastError();
@@ -731,9 +702,7 @@ __global__ void __launch_bounds__(Async<MODE, CO>::NG* NT, 1)
     // still fly where R = 2
     tc::cp_async_wait<R - 1>();
     sync();  // every thread's copies have landed; the last step's MMAs are done
-    if constexpr (MEDSEG_TC_ABLATE < 2)
-      tc::box_to_rows<HZ, HY, HX, BOX_PITCH, BOX_OFF, NT>(gbase + (k % R) * BOX_BYTES, rows,
-                                                           tid);
+    tc::box_to_rows<HZ, HY, HX, BOX_PITCH, BOX_OFF, NT>(gbase + (k % R) * BOX_BYTES, rows, tid);
     sync();  // the rows are staged; stage k % R and the other weight buffer are free
     if (!p.resident && k + 1 < nsteps)
       issue_weights<RES, CO>(p, (k + 1) % ns, wbuf((k + 1) & 1), tid, NT);
@@ -804,7 +773,7 @@ cudaError_t launch_async(TcConvArgs p, int device, cudaStream_t stream, Plan* pl
   if (p.ntiles == 0) return cudaSuccess;
   const int blocks = (p.ntiles + L::NG - 1) / L::NG;
   const int grid = blocks < per_sm * sms ? blocks : per_sm * sms;
-  e = set_slots<L::STATS, L::RES, CO>(p, (long long)grid * L::NG, stream);
+  e = set_slots<L::STATS>(p, (long long)grid * L::NG);
   if (e != cudaSuccess) return e;
   conv_tc_async_kernel<MODE, CO><<<grid, L::NG * NT, smem, stream>>>(p);
   e = cudaGetLastError();

@@ -42,19 +42,12 @@
 //   - The grid is a grid-stride walk over the groups of one batch element
 //     (blockIdx.y), sized by the wrapper once per shape from the occupancy
 //     of the instantiation (medseg_dice_ce_grid).
-// MEDSEG_LOSS_ABLATE=1 compiles a copy-only build: the same loads and
-// stores (K7's partials, K8's dlogits as a copy of the logits), no softmax
-// and no sums; its results are wrong by design, only its times are read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
-
-#ifndef MEDSEG_LOSS_ABLATE
-#define MEDSEG_LOSS_ABLATE 0
-#endif
 
 namespace medseg {
 namespace {
@@ -173,9 +166,6 @@ __global__ void __launch_bounds__(LTHREADS, 2)
 
   const long long units = vec ? V / VEC : V;
   const long long stride = (long long)gridDim.x * LTHREADS;
-#if MEDSEG_LOSS_ABLATE
-  uint32_t acc = 0;
-#endif
   for (long long u = (long long)blockIdx.x * LTHREADS + tid; u < units; u += stride) {
     if (vec) {
       uint4 raw[KR];
@@ -191,13 +181,6 @@ __global__ void __launch_bounds__(LTHREADS, 2)
         y[4 * i + 2] = t.z;
         y[4 * i + 3] = t.w;
       }
-#if MEDSEG_LOSS_ABLATE
-#pragma unroll
-      for (int k = 0; k < KR; ++k)
-        if (KT || k < K) acc ^= raw[k].x ^ raw[k].y ^ raw[k].z ^ raw[k].w;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc ^= y[j];
-#else
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
 #pragma unroll
@@ -209,26 +192,15 @@ __global__ void __launch_bounds__(LTHREADS, 2)
           voxel(l, y[w * PW + s]);
         }
       }
-#endif
     } else {
       const int y = lab[u];
       float l[KR];
 #pragma unroll
       for (int k = 0; k < KR; ++k)
         if (KT || k < K) l[k] = to_float<T>(lg[k * V + u]);
-#if MEDSEG_LOSS_ABLATE
-#pragma unroll
-      for (int k = 0; k < KR; ++k)
-        if (KT || k < K) acc ^= __float_as_uint(l[k]);
-      acc ^= y;
-#else
       voxel(l, y);
-#endif
     }
   }
-#if MEDSEG_LOSS_ABLATE
-  sce = __uint_as_float(acc & 0x3fffffffu);
-#endif
 
   // P and CE: a warp's lanes by xor shuffles, then the warps in order
   const int lane = tid & 31, warp = tid >> 5;
@@ -350,11 +322,6 @@ __global__ void __launch_bounds__(LTHREADS, 2)
         y[4 * i + 2] = q.z;
         y[4 * i + 3] = q.w;
       }
-#if MEDSEG_LOSS_ABLATE
-#pragma unroll
-      for (int k = 0; k < KR; ++k)
-        if (KT || k < K) raw[k].x ^= y[k % VEC] & 1;
-#else
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         float v[PW][KR];
@@ -375,7 +342,6 @@ __global__ void __launch_bounds__(LTHREADS, 2)
           }
         }
       }
-#endif
 #pragma unroll
       for (int k = 0; k < KR; ++k)
         if (KT || k < K) __stcs(reinterpret_cast<uint4*>(dl + k * V) + u, raw[k]);
@@ -385,9 +351,7 @@ __global__ void __launch_bounds__(LTHREADS, 2)
 #pragma unroll
       for (int k = 0; k < KR; ++k)
         if (KT || k < K) l[k] = to_float<T>(lg[k * V + u]);
-#if !MEDSEG_LOSS_ABLATE
       voxel(l, y);
-#endif
 #pragma unroll
       for (int k = 0; k < KR; ++k)
         if (KT || k < K) dl[k * V + u] = from_float<T>(l[k]);

@@ -61,12 +61,6 @@
 //     alignment of the rows (Wp % 8 != 0 included) and waits for no read.
 // Ownership (K4): one warp owns each voxel of the box in a launch, and
 // launches on a stream run in order, so the result is deterministic.
-//
-// Build-time ablations (``medseg_torch/tools/ablate_outhead_tc.py``; their
-// results are wrong by design): MEDSEG_OUTHEAD_ABLATE=1, the copy-only
-// kernels (the same copies, shared memory and exits; no combine, the raw z
-// and res bits are staged, and no MMA); =2, the same without the exits'
-// global accesses; =3, everything but the copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,10 +70,6 @@
 
 #include "common.cuh"
 #include "tc_common.cuh"
-
-#ifndef MEDSEG_OUTHEAD_ABLATE
-#define MEDSEG_OUTHEAD_ABLATE 0
-#endif
 
 namespace medseg {
 namespace {
@@ -211,7 +201,7 @@ __device__ __forceinline__ void issue(const Pass& q, const __nv_bfloat16* z,
                                       const float* scale, int C, unsigned char* stage,
                                       int lane) {
   using CF = Cfg<NCM, NK>;
-  if (q.seg < 0 || MEDSEG_OUTHEAD_ABLATE == 3) return;
+  if (q.seg < 0) return;
 #pragma unroll
   for (int m = 0; m < CF::COPIES; ++m) {
     const int i = lane + 32 * m;
@@ -264,14 +254,10 @@ __device__ __forceinline__ uint4 align8(const uint4& lo, const uint4& hi, int s,
 // leaky(az*z + bz + ar*res + br) of 8 voxels of one channel, rounded to bf16.
 __device__ __forceinline__ uint4 combine8(const uint4& z, const uint4& r, float az, float bz,
                                           float ar, float br) {
-#if MEDSEG_OUTHEAD_ABLATE == 1 || MEDSEG_OUTHEAD_ABLATE == 2
-  return make_uint4(z.x ^ r.x, z.y ^ r.y, z.z ^ r.z, z.w ^ r.w);
-#else
   return make_uint4(tc::combine_pair(z.x, r.x, az, bz, ar, br, az, bz, ar, br),
                     tc::combine_pair(z.y, r.y, az, bz, ar, br, az, bz, ar, br),
                     tc::combine_pair(z.z, r.z, az, bz, ar, br, az, bz, ar, br),
                     tc::combine_pair(z.w, r.w, az, bz, ar, br, az, bz, ar, br));
-#endif
 }
 
 // A landed pass: its items combined into ``As``, the head's fp32 sums (no
@@ -306,7 +292,6 @@ __device__ __forceinline__ void pass_head(const Pass& q, const __nv_bfloat16* z,
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < NK; ++nt) d[mt][nt][0] = d[mt][nt][1] = d[mt][nt][2] = d[mt][nt][3] = 0.f;
-#if MEDSEG_OUTHEAD_ABLATE != 1 && MEDSEG_OUTHEAD_ABLATE != 2
     // ldmatrix.x4.trans: matrix j = lanes 8j..8j+7 point at channel rows
     // 16 ks + (lane & 7) + 8 (j >> 1) of voxel chunk 2 mt + (j & 1), which
     // gives a[j] of the row-major A (voxels x channels) fragment
@@ -322,7 +307,6 @@ __device__ __forceinline__ void pass_head(const Pass& q, const __nv_bfloat16* z,
         for (int nt = 0; nt < NK; ++nt) tc::mma_bf16(d[mt][nt], a, head.b[nt][ks][0], head.b[nt][ks][1]);
       }
     }
-#endif
   }
 }
 
@@ -490,7 +474,7 @@ __global__ void __launch_bounds__(NTHREADS) outhead_tc_kernel(const HeadTcArgs p
         for (int m = 0; m < NK; ++m) {  // item (class, 8-voxel chunk): NK * 8 * 4 of them
           const int i = lane + 32 * m, cls = i >> 2, j = i & 3;
           const uint32_t vm = (q.bm >> (8 * j)) & 0xffu;
-          if (vm && MEDSEG_OUTHEAD_ABLATE != 2) {
+          if (vm) {
             float v[8];
             read_exit(E, cls, j, v);
             store8(p.out + ((long long)q.b * K + cls) * p.V + q.x0 + 8 * j, v, vm);
@@ -592,7 +576,7 @@ __global__ void __launch_bounds__(NTHREADS) outhead_row_tc_kernel(const RowTcArg
 #pragma unroll
         for (int m = 0; m < ACC_COPIES; ++m) {
           const int i = lane + 32 * m, cls = i / CF::ACC_CHUNKS, j = i - cls * CF::ACC_CHUNKS;
-          if (cls < 8 * NK && MEDSEG_OUTHEAD_ABLATE != 2) {
+          if (cls < 8 * NK) {
             const uintptr_t addr = reinterpret_cast<uintptr_t>(acc + cls * VA + row);
             const int s = (int)((addr & 15u) / sizeof(A));
             if (in_row & chunk_voxels<EPC>(j, s))
@@ -630,7 +614,7 @@ __global__ void __launch_bounds__(NTHREADS) outhead_row_tc_kernel(const RowTcArg
         // one voxel per lane, all classes: its accumulator value from the
         // slot (the run starts s values into its first chunk), one rounding,
         // one write; a warp's write is 32 consecutive values of a class plane
-        if (((cov >> lane) & 1u) && MEDSEG_OUTHEAD_ABLATE != 2) {
+        if ((cov >> lane) & 1u) {
 #pragma unroll
           for (int cls = 0; cls < 8 * NK; ++cls) {
             A* dst = acc + cls * VA + row_a;

@@ -450,17 +450,24 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
+def roofline_ms(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time the card could take for ``flops`` operations of type
+    ``dtype`` and ``nbytes`` bytes of HBM traffic: the larger of the
+    operations over their peak rate and the bytes over the HBM bandwidth,
+    in ms, and which of the two bounds it."""
+    flop_s = flops / PEAK_FLOPS[dtype]
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(flop_s, byte_s), "operations" if flop_s >= byte_s else "bytes"
+
+
 def bound_ms(case: Case, dtype: torch.dtype, outputs) -> tuple[float, str]:
-    """The least time the card could take for the case's work: the larger of
-    its operations over the peak rate of their type and its bytes (each
-    input read once, each output written once) over the HBM bandwidth."""
-    rate = PEAK_FLOPS[torch.float32 if case.fp32_math else dtype]
-    flop_s = case.flops / rate
+    """The least time the card could take for the case's work
+    (``roofline_ms``; its bytes: each input read once, each output written
+    once)."""
     nbytes = case.nbytes
     if nbytes is None:
         nbytes = _nbytes(case.args) + _nbytes(case.kwargs.values()) + _nbytes(outputs)
-    byte_s = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(flop_s, byte_s), "operations" if flop_s >= byte_s else "bytes"
+    return roofline_ms(case.flops, nbytes, torch.float32 if case.fp32_math else dtype)
 
 
 def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:

@@ -5,10 +5,10 @@ MONAI 0.6.0 ``ViT`` as the reference configures it: patch embedding
 ("perceptron": non-overlapping p^3 patches flattened channel-fastest, then one
 Linear; or "conv": a Conv3d with kernel = stride = p) plus a learnable
 positional embedding, no cls token; pre-LN transformer blocks (qkv without
-bias, out projection with bias, MLP with exact erf GELU unless
-``gelu_approx``); returns ``(LayerNorm(final), [every block's output])``.
-Attention goes through ``F.scaled_dot_product_attention``, as the JAX side
-uses plain ``jax.nn.dot_product_attention``. Parameter names follow MONAI's
+bias, out projection with bias, MLP with exact erf GELU); returns
+``(LayerNorm(final), [every block's output])``. Attention goes through
+``F.scaled_dot_product_attention``, as the JAX side uses plain
+``jax.nn.dot_product_attention``. Parameter names follow MONAI's
 (``patch_embedding.patch_embeddings.1``, ``blocks.{i}.attn.qkv``,
 ``blocks.{i}.mlp.linear1``, ...).
 
@@ -118,14 +118,14 @@ class SABlock(nn.Module):
 
 class MLPBlock(nn.Module):
     def __init__(self, hidden_size: int, mlp_dim: int, dropout_rate: float = 0.0,
-                 gelu_approx: bool = False, dtype: torch.dtype | None = None) -> None:
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.linear1 = nn.Linear(hidden_size, mlp_dim)
         self.linear2 = nn.Linear(mlp_dim, hidden_size)
-        # torch nn.GELU default = exact erf (the parity contract); tanh is
-        # the serving option of the JAX package's ``gelu_approx``
-        self.approximate = "tanh" if gelu_approx else "none"
+        # exact erf GELU (the parity contract); the tests set "tanh" to hold
+        # the JAX package's ``gelu_approx``
+        self.approximate = "none"
         self.drop = nn.Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,14 +137,13 @@ class TransformerBlock(nn.Module):
     """Pre-LN transformer block (MONAI TransformerBlock contract)."""
 
     def __init__(self, hidden_size: int, mlp_dim: int, num_heads: int,
-                 dropout_rate: float = 0.0, gelu_approx: bool = False,
-                 dtype: torch.dtype | None = None) -> None:
+                 dropout_rate: float = 0.0, dtype: torch.dtype | None = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.attn = SABlock(hidden_size, num_heads, dropout_rate, dtype)
         self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.mlp = MLPBlock(hidden_size, mlp_dim, dropout_rate, gelu_approx, dtype)
+        self.mlp = MLPBlock(hidden_size, mlp_dim, dropout_rate, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(layer_norm(self.norm1, x, self.dtype))
@@ -157,8 +156,7 @@ class ViT(nn.Module):
     def __init__(self, in_channels: int, img_size, patch_size: int = 16, hidden_size: int = 768,
                  mlp_dim: int = 3072, num_layers: int = 12, num_heads: int = 12,
                  pos_embed: str = "perceptron", dropout_rate: float = 0.0,
-                 gelu_approx: bool = False, dtype: torch.dtype | None = None,
-                 remat: bool = False) -> None:
+                 dtype: torch.dtype | None = None, remat: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.remat = remat
@@ -166,7 +164,7 @@ class ViT(nn.Module):
             in_channels, img_size, patch_size, hidden_size, pos_embed, dropout_rate, dtype
         )
         self.blocks = nn.ModuleList(
-            TransformerBlock(hidden_size, mlp_dim, num_heads, dropout_rate, gelu_approx, dtype)
+            TransformerBlock(hidden_size, mlp_dim, num_heads, dropout_rate, dtype)
             for _ in range(num_layers)
         )
         self.norm = nn.LayerNorm(hidden_size, eps=1e-5)

@@ -25,8 +25,9 @@ one DiceCE forward and backward (``dice_ce_fused``) is profiled for its
 device launches, the kernels and the scalar glue of ``DiceCEFn``.
 The inputs come from one seeded generator, the same in every tree. Prints
 one line per case with the route it took (the tree's ``tc_launches``) and
-its bound (``kernel_check``'s reckoning: each input read once, each output
-written once; K4 also one read and one write of the windows' box), and
+its bound (``kernel_check.roofline_ms`` of the tree holding this file; its
+bytes: each input read once, each output written once; K4 also one read
+and one write of the windows' box), and
 writes ``chiprun_out/time_routes_<label>.json``. Needs one NVIDIA GPU.
 """
 
@@ -278,13 +279,11 @@ def main(argv=None) -> int:
         dev_ms = None
         if kernel in DEVICE_KERNELS and dt == BF:
             dev_ms = this_check.device_ms(call, DEVICE_KERNELS[kernel])
-        flop_s = flops / kernel_check.PEAK_FLOPS[dt]
-        byte_s = nbytes / kernel_check.HBM_BYTES_PER_S
-        bound = 1e3 * max(flop_s, byte_s)
+        bound, bound_by = this_check.roofline_ms(flops, nbytes, dt)
         route = "narrow tensor cores" if narrow else "tensor cores" if tc else "cuda cores"
         row = {"case": name, "tree": args.label, "route": route,
                "launches": launches, "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": bound,
-               "bound_by": "operations" if flop_s >= byte_s else "bytes",
+               "bound_by": bound_by,
                "gbytes_per_s": nbytes / ms / 1e6, "library_ms": lib_ms,
                "library_cl_ms": lib_cl_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
                "card": card}
@@ -313,15 +312,12 @@ def main(argv=None) -> int:
         pattern = f"dice_ce_{kernel}"
         dev_ms = this_check.device_ms(call, pattern)
         cold_ms = this_check.device_ms(call, pattern, flush=l2.sum)
-        bound = 1e3 * max(flops / kernel_check.PEAK_FLOPS[F32],
-                          nbytes / kernel_check.HBM_BYTES_PER_S)
-        route = "voxel per thread"  # a tree without the 16-byte route
-        if hasattr(loss_of, "vector_route"):
-            route = ("16-byte words" if loss_of.vector_route(labels[0].numel(), dt, logits, labels)
-                     else "one voxel at a time")
+        bound, bound_by = this_check.roofline_ms(flops, nbytes, F32)  # the loss computes in fp32
+        route = ("16-byte words" if loss_of.vector_route(labels[0].numel(), dt, logits, labels)
+                 else "one voxel at a time")
         row = {"case": name, "tree": args.label, "route": route, "launches": launches, "ms": ms,
                "device_ms": dev_ms, "device_cold_ms": cold_ms, "bound_ms": bound,
-               "bound_by": "bytes", "gbytes_per_s": nbytes / cold_ms / 1e6, "card": card}
+               "bound_by": bound_by, "gbytes_per_s": nbytes / cold_ms / 1e6, "card": card}
         if kernel == "bwd" and k == 14 and dt == BF and vol == (96, 96, 96):
             row["loss_launches_per_step"] = loss_launches(loss_of, profile,
                                                           OUT_DIR / f"trace_loss_{args.label}.json",

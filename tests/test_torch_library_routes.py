@@ -15,11 +15,13 @@ patches the port for one run; nothing of it is a user option.
   called, the data gradient still K1's and bitwise the default's.
 - "loss" (``MEDSEG_FUSED_LOSS=0``): ``make_loss_fn``'s CT loss is the plain
   DiceCE; loss and dlogits against the JAX ``dice_ce_loss``, both routes.
-- The tanh GELU (``chip_smoke.tanh_gelu``, the JAX package's serving
+- The tanh GELU (``tanh_gelu``, the JAX package's serving
   ``gelu_approx``): ``_lowres_stages`` against the JAX ``_xla_stages`` with
   tanh and exact GELU (fp32, 1e-5 relative; the two differ by far more).
 - Each patch is undone when its block ends.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -249,6 +251,22 @@ def test_library_route_is_undone_after_its_block(parts):
 # ---- the tanh GELU ---------------------------------------------------------
 
 
+@contextlib.contextmanager
+def tanh_gelu(model):
+    """The ViT's MLPs on the tanh GELU within the block (the JAX package's
+    serving ``gelu_approx``, which it takes on a TPU backend only); exact
+    again after."""
+    mlps = [block.mlp for block in model.vit.blocks]
+    saved = [mlp.approximate for mlp in mlps]
+    try:
+        for mlp in mlps:
+            mlp.approximate = "tanh"
+        yield
+    finally:
+        for mlp, approximate in zip(mlps, saved):
+            mlp.approximate = approximate
+
+
 @pytest.fixture(scope="module")
 def pair():
     """flax params of a small UNETR (feature size 8, crop 32) and the port
@@ -277,7 +295,7 @@ def test_lowres_stages_match_jax_xla_stages(pair, gelu_approx):
     jmodel, params, tmodel, x = pair
     want = juo._xla_stages(jmodel, params["params"], jnp.asarray(x), gelu_approx=gelu_approx)
     with torch.no_grad():
-        with chip_smoke.tanh_gelu(tmodel):
+        with tanh_gelu(tmodel):
             tanh = tuo._lowres_stages(tmodel, _t(x))
         exact = tuo._lowres_stages(tmodel, _t(x))
     got, other = (tanh, exact) if gelu_approx else (exact, tanh)
